@@ -10,45 +10,65 @@ Phases, one or more printed lines each; any failed check raises and the
 script exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch build;
-2. build: K1 (``ppr_tpu_torch/csrc/dense_power.cu``) compiled with nvcc;
-3. K1 against its plain PyTorch version and against the sparse power
+2. build: ``ppr_tpu_torch/csrc/dense_power.cu`` (K1, K2) and
+   ``csrc/probe.cu`` (K0), one nvcc each, started together; ptxas lines;
+3. K0, the toolchain probe, against ``2 * x`` bit for bit;
+4. K1 against its plain PyTorch version and against the sparse power
    method, on the 107-node GOT-scale graph (n_pad 128, B 50) and on a
    1000-node graph at the kernel's limit (n_pad 1024, B 1000), with median
    times of 10 CUDA-event-timed runs;
-4. the oracle path: ``PowerMethod`` on the GOT-scale graph, which must go
-   through K1;
-5. FORA top-k serving (``PPRService.top_k``) on the GOT-scale graph,
-   precision@10 against that oracle;
-6. the main path at the benchmark size (65,536 nodes, ~1M edges, B 2048,
-   4096 bf16 hubs): throughput, sweep count, precision@10 of the timed
-   call against the port's power method, which is itself checked against a
-   float64 scipy power iteration;
+5. K2 against its plain version and, normalized, against the sparse
+   Neo4j iteration, at the same two shapes, 300 rounds;
+6. the serving path: the oracle (``PowerMethod``, through K1) on the
+   GOT-scale graph; FORA top-k serving (``PPRService.top_k``) there,
+   precision@10 against that oracle; and the benchmark size (65,536
+   nodes, ~1M edges, B 2048, 4096 bf16 hubs): throughput, sweep count,
+   precision@10 of the timed call against the port's power method, which
+   is itself checked against a float64 scipy power iteration;
 7. a ``torch.profiler`` trace of one more batch at that size: kernel time
    by operator, the span from first to last kernel, and the device's idle
    share in it. The chrome trace is written to
-   ``build/ppr_tpu_torch/bench_trace.json``.
+   ``build/ppr_tpu_torch/bench_trace.json``;
+8. the protocol path: the port's CLI (``ppr_tpu_torch.cli.main``)
+   in-process, run from ``build/ppr_tpu_torch/protocol/<graph>/`` (its
+   preprocessing stores land there, its output goes to ``cli.log``), on
+   the GOT-scale graph (Neo4j method Tests 1-3 and FORA top-k Test 2), on
+   the 1000-node graph (Tests 1 and 3, through K2 at n_pad 1024), and on
+   the sparse ca-GrQc-scale graph (Tests 1 and 2, no K2); each row's
+   accuracy is held to a bar, and a preprocessing store is read back
+   against a direct K2 launch.
 
-Launch counts are reset after phase 3 and read after phase 6, so they count
-the main path only. The last three lines are the kernels' JSON record (its
-``ms`` and ``plain_ms`` are at the oracle path's 107-node shape, and
-``shapes`` holds both shapes' times), the card line, and
-``{"ok": true, "device": {...}}``. Without a CUDA card the
-script prints no result and exits 1.
+Launch counts are reset before the serving path (6) and read after it,
+and again before and after the protocol path (8); a reset also forgets
+the probe, so each path runs K0 once before its first dense kernel. The
+last three lines are the kernels' JSON record (``launches`` summed over
+the two paths; ``ms`` and ``plain_ms`` at the 107-node shape, and
+``shapes`` with both shapes' times), the card line, and
+``{"ok": true, "device": {...}}``. Without a CUDA card the script prints
+no result and exits 1.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 ALPHA, EPS, K = 0.15, 0.5, 10
 ITERS = 100
 K1_TOL = 2e-5
+K2_ITERS = 300
+K2_TOL = 2e-5      # x keeps unit mass, so its rounding builds up over rounds
+PROTOCOL_ERR = 1e-6
+PROTOCOL_DIR = os.path.join("build", "ppr_tpu_torch", "protocol")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -167,6 +187,174 @@ def profile_batch(algo, sources) -> None:
               f"{us / 1e3 / sweeps:7.3f} ms/sweep")
 
 
+def reset_launches() -> None:
+    """Zero every kernel's launch count; forget the probe, so K0 runs
+    again before the next dense-kernel launch."""
+    from ppr_tpu_torch.ops import dense_power, probe
+
+    dense_power.launches = 0
+    dense_power.pagerank_launches = 0
+    probe.reset()
+
+
+def read_launches() -> dict[str, int]:
+    from ppr_tpu_torch.ops import dense_power, probe
+
+    return {"k1": dense_power.launches, "k2": dense_power.pagerank_launches,
+            "k0": probe.launches}
+
+
+def protocol_rows(path: str) -> dict[tuple[int, str], list[list[str]]]:
+    """Data rows of a ``<name>_AlgoPerfResults.txt``, by (test, algorithm)
+    section."""
+    rows: dict[tuple[int, str], list[list[str]]] = {}
+    key = None
+    with open(path) as f:
+        for line in f.read().splitlines():
+            m = re.fullmatch(r"(\d)\.\d+ (\w+)", line)
+            if m:
+                key = (int(m[1]), m[2])
+            elif key and "," in line and not line.startswith("#"):
+                rows.setdefault(key, []).append(line.split(","))
+    return rows
+
+
+def run_protocol(tag: str, argv: list[str]):
+    """``ppr_tpu_torch.cli.main(argv)`` in-process from a fresh
+    ``build/ppr_tpu_torch/protocol/<tag>/``, its output in ``cli.log``
+    there. Returns the result rows, the wall seconds and the directory."""
+    from ppr_tpu_torch import cli
+
+    work = os.path.abspath(os.path.join(PROTOCOL_DIR, tag))
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    log = os.path.join(work, "cli.log")
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(work)
+        with open(log, "w") as f, contextlib.redirect_stdout(f):
+            cli.main([*argv, "--out-dir", work])
+    except BaseException:
+        with open(log) as f:
+            sys.stderr.write(f.read()[-4000:])
+        raise
+    finally:
+        os.chdir(cwd)
+    wall = time.perf_counter() - t0
+    [name] = [f for f in os.listdir(work) if f.endswith("_AlgoPerfResults.txt")]
+    return protocol_rows(os.path.join(work, name)), wall, work
+
+
+def check_protocol_rows(tag: str, rows, *, top_iters=40, err_iters=100,
+                        err=PROTOCOL_ERR) -> None:
+    """Print every row and hold the Neo4j rows to the bars: max-err <= err
+    from ``err_iters`` iterations, precision 1.0 and NDCG >= 0.999 from
+    ``top_iters``; preprocessing bytes > 0; every number finite."""
+    check(bool(rows), f"[protocol:{tag}] no result rows")
+    for (test, algo), section in sorted(rows.items()):
+        for fields in section:
+            param = float(fields[0])
+            check(all(np.isfinite(float(x)) for x in fields),
+                  f"[protocol:{tag}] {test} {algo} {fields}: not finite")
+            if test == 1:
+                ms, e = float(fields[1]), float(fields[2])
+                line = f"{ms:.3f} ms/query, max-err {e:.3e}"
+            elif test == 2:
+                ms, prec, ndcg = (float(x) for x in fields[2:5])
+                line = (f"{ms:.3f} ms/query, precision {prec:.4f}, "
+                        f"NDCG {ndcg:.6f}")
+            else:
+                ms, nbytes, e = (float(fields[2]), int(fields[3]),
+                                 float(fields[4]))
+                line = (f"prep_ms {ms:.1f}, store {nbytes} bytes, "
+                        f"max-err {e:.3e}")
+                check(nbytes > 0, f"[protocol:{tag}] empty store: {fields}")
+            print(f"[protocol:{tag}] test {test} {algo} param {fields[0]}: "
+                  f"{line}")
+            if algo != "NEO4J_METHOD":
+                continue
+            if test in (1, 3) and param >= err_iters:
+                check(e <= err, f"[protocol:{tag}] test {test} iters "
+                      f"{fields[0]}: max-err {e} > {err}")
+            if test == 2 and param >= top_iters:
+                check(prec == 1.0 and ndcg >= 0.999,
+                      f"[protocol:{tag}] test 2 iters {fields[0]}: "
+                      f"precision {prec}, NDCG {ndcg}")
+
+
+def protocol_path(dev) -> dict[str, int]:
+    """The protocol CLI on three graphs; returns the path's launch
+    counts."""
+    import torch
+
+    from ppr_tpu_torch import cli
+    from ppr_tpu_torch.models.neo4j_method import Neo4jMethod
+    from ppr_tpu_torch.ops import dense_power
+
+    reset_launches()
+    rows, wall, _ = run_protocol("got", [
+        "--db", "synth:107x3@7", "--sweep", "got", "--query", "50",
+        "--k", str(K), "--tests", "1,2,3",
+        "--algos", "NEO4J_METHOD,FORA_TOPK"])
+    counts = read_launches()
+    print(f"[protocol:got] synth:107x3@7, 50 queries, Tests 1-3: wall "
+          f"{wall:.1f} s; launches K2 {counts['k2']}, K1 {counts['k1']}, "
+          f"K0 {counts['k0']}")
+    check(counts["k2"] > 0, "the protocol did not launch K2")
+    check(counts["k1"] > 0, "the protocol's oracle did not launch K1")
+    check(counts["k0"] == 1, f"K0 ran {counts['k0']} times, not once")
+    check_protocol_rows("got", rows)
+    check(len(rows[(2, "FORA_TOPK")]) == 5, "FORA_TOPK rows missing")
+
+    rows, wall, work = run_protocol("k2max", [
+        "--db", "synth:1000x16@11", "--sweep", "got", "--query", "50",
+        "--k", str(K), "--tests", "1,3", "--algos", "NEO4J_METHOD"])
+    print(f"[protocol:k2max] synth:1000x16@11 (n_pad 1024), 50 queries, "
+          f"Tests 1 and 3: wall {wall:.1f} s; K2 launches so far "
+          f"{dense_power.pagerank_launches}")
+    check_protocol_rows("k2max", rows)
+
+    k2_before = dense_power.pagerank_launches
+    rows, wall, _ = run_protocol("grqc", [
+        "--db", "synth:grqc", "--query", "50", "--k", str(K),
+        "--tests", "1,2", "--algos", "NEO4J_METHOD"])
+    print(f"[protocol:grqc] synth:grqc (5,120 nodes, sparse), 50 queries, "
+          f"Tests 1 and 2: wall {wall:.1f} s")
+    check(dense_power.pagerank_launches == k2_before,
+          "the sparse graph launched K2")
+    check_protocol_rows("grqc", rows)
+    counts = read_launches()
+
+    # a preprocessing store read back against a direct K2 launch
+    ds = cli.load_dataset("synth:1000x16@11", device=dev)
+    algo = Neo4jMethod(ds, ALPHA)
+    sources = np.array([0, 1, 500, 999])
+    onehot = torch.nn.functional.one_hot(
+        torch.as_tensor(sources, device=dev), ds.graph.n_pad).float()
+    x = dense_power.dense_pagerank_iterations(ds.graph, onehot, 1 - ALPHA,
+                                              K2_ITERS)
+    direct = (x / x.sum(-1, keepdim=True)).cpu().numpy()
+    err = 0.0
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)     # the store's root is relative to the CWD
+        algo.preprocessing(-1.0, K2_ITERS, progress=False)
+        for i, s in enumerate(sources):
+            algo.read_preprocessed_ppr(int(s))
+            err = max(err, float(np.abs(algo.get_whole_graph_dense()
+                                        - direct[i]).max()))
+        nbytes = algo.get_prep_size()
+        algo.delete_prep_dir()
+    finally:
+        os.chdir(cwd)
+    print(f"[protocol:k2max] store rows {sources.tolist()} at iters "
+          f"{K2_ITERS} vs a direct K2 launch, normalized: max abs err "
+          f"{err:.3e}, store {nbytes} bytes")
+    check(err <= PROTOCOL_ERR, f"store rows differ from K2 by {err}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -178,8 +366,9 @@ def main() -> int:
     from ppr_tpu_torch.device import set_exact_f32_matmul
     from ppr_tpu_torch.graph.io import load_default, synthetic_powerlaw
     from ppr_tpu_torch.models.config import AlgoConf
+    from ppr_tpu_torch.models.neo4j_method import personalized_pagerank_batch
     from ppr_tpu_torch.models.power_method import power_method_batch
-    from ppr_tpu_torch.ops import cuda_build, dense_power
+    from ppr_tpu_torch.ops import cuda_build, dense_power, probe
     from ppr_tpu_torch.service import PPRService
 
     dev = torch.device("cuda")
@@ -188,17 +377,39 @@ def main() -> int:
     print(f"[card] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
-    # --- 2. build ---------------------------------------------------------
+    # --- 2. build: one nvcc per source, started together -----------------
     t0 = time.perf_counter()
-    cuda_build.load_library("dense_power")
-    secs, log = cuda_build.BUILD_INFO["dense_power"]
-    print(f"[build] dense_power.cu: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {secs:.2f} s)")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(cuda_build.load_library, ("dense_power", "probe")))
+    print(f"[build] dense_power.cu (K1, K2) and probe.cu (K0): "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in ("dense_power", "probe"):
+        secs, log = cuda_build.BUILD_INFO[name]
+        print(f"[build] {name}.cu: nvcc {secs:.2f} s")
+        for line in log.splitlines():
+            # the mangled entry names hold the kernel and its CPT template
+            entry = re.search(r"(ppr_\w+?_kernel)(?:ILi(\d)E)?", line)
+            if "entry function" in line and entry:
+                cpt = f"<{entry[2]}>" if entry[2] else ""
+                print(f"[build] ptxas: {entry[1]}{cpt}")
+            elif "registers" in line or "spill" in line:
+                print(f"[build] ptxas: {line.strip()}")
 
-    # --- 3. K1 against its plain version ---------------------------------
+    # --- 3. K0, the toolchain probe -----------------------------------------
+    probe.ensure(dev)
+    x0 = torch.arange(8 * 128, dtype=torch.float32, device=dev) \
+        .reshape(probe.SHAPE) / 7.0
+    y0 = probe.double(x0)
+    k0_err = (y0 - probe.double_ref(x0)).abs().max().item()
+    check(torch.equal(y0, probe.double_ref(x0)), "K0 differs from 2x")
+    k0 = {"max_abs_err": k0_err,
+          "ms": cuda_ms(lambda: probe.double(x0)),
+          "plain_ms": cuda_ms(lambda: probe.double_ref(x0))}
+    print(f"[k0] y = 2x on f32 {list(probe.SHAPE)}: equal bit for bit; "
+          f"kernel {k0['ms']:.4f} ms, plain {k0['plain_ms']:.4f} ms "
+          f"(median of 10)")
+
+    # --- 4. K1 against its plain version ---------------------------------
     ds_a = load_default(device=dev)
     ds_a_sparse = load_default(dense_threshold=0, device=dev)
     sources_50 = np.random.default_rng(0).choice(ds_a.n, 50, replace=False)
@@ -245,10 +456,48 @@ def main() -> int:
         if tag == "a":
             k1.update(ms=ms, plain_ms=plain_ms, out_a=out.cpu().numpy())
 
-    # --- launch counts: the main path from here on -------------------------
-    dense_power.launches = 0
+    # --- 5. K2 against its plain version and the sparse iteration --------
+    damping = 1.0 - ALPHA
+    k2 = {"max_abs_err": 0.0, "shapes": []}
+    for tag, ds, ds_sparse, sources in (
+        ("a", ds_a, ds_a_sparse, sources_50),
+        ("b", ds_b, ds_b_sparse, np.arange(ds_b.n)),
+    ):
+        g = ds.graph
+        onehot = torch.nn.functional.one_hot(
+            torch.as_tensor(sources, device=dev), g.n_pad).float()
+        out = dense_power.dense_pagerank_iterations(g, onehot, damping,
+                                                    K2_ITERS)
+        ref = dense_power.dense_pagerank_iterations_ref(g, onehot, damping,
+                                                        K2_ITERS)
+        sparse = personalized_pagerank_batch(ds_sparse.graph, sources,
+                                             damping, K2_ITERS)
+        torch.cuda.synchronize()
+        err_ref = (out - ref).abs().max().item()
+        err_sparse = (out / out.sum(-1, keepdim=True) - sparse) \
+            .abs().max().item()
+        ms = cuda_ms(lambda: dense_power.dense_pagerank_iterations(
+            g, onehot, damping, K2_ITERS))
+        plain_ms = cuda_ms(lambda: dense_power.dense_pagerank_iterations_ref(
+            g, onehot, damping, K2_ITERS))
+        print(f"[k2:{tag}] n={g.n} n_pad={g.n_pad} B={len(sources)} "
+              f"iters={K2_ITERS}: max|kernel-plain|={err_ref:.3e} "
+              f"max|normalized kernel-sparse Neo4j|={err_sparse:.3e}; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 10)")
+        for what, err in (("plain", err_ref), ("sparse", err_sparse)):
+            check(err <= K2_TOL, f"K2 graph {tag}: |kernel-{what}| = {err}")
+        check(bool(torch.isfinite(out).all()), f"K2 graph {tag}: not finite")
+        k2["max_abs_err"] = max(k2["max_abs_err"], err_ref)
+        k2["shapes"].append({"n_pad": g.n_pad, "batch": len(sources),
+                             "iters": K2_ITERS, "ms": ms,
+                             "plain_ms": plain_ms})
+        if tag == "a":
+            k2.update(ms=ms, plain_ms=plain_ms)
 
-    # --- 4. the oracle path -----------------------------------------------
+    # --- launch counts: the serving path from here on --------------------
+    reset_launches()
+
+    # --- 6. the serving path: the oracle ----------------------------------
     oracle_a = AlgoConf(ALPHA).set_conf_power_method(ds_a) \
         .compute_whole_graph_batch(sources_50)
     check(dense_power.launches > 0, "PowerMethod did not launch K1")
@@ -258,7 +507,7 @@ def main() -> int:
           f"{dense_power.launches}, row sums min "
           f"{oracle_a.sum(-1).min():.6f}")
 
-    # --- 5. FORA top-k on the GOT-scale graph --------------------------------
+    # --- 6. FORA top-k on the GOT-scale graph --------------------------------
     tol_a = EPS / ds_a.n
     svc_a = PPRService.from_dataset(ds_a, alpha=ALPHA, eps=EPS, k=K)
     vals, ids = svc_a._topk_algo.compute_topk_ids_batch(sources_50, K, EPS)
@@ -272,7 +521,7 @@ def main() -> int:
           f"raw {prec_a_raw:.4f}")
     check(prec_a >= 0.99, f"GOT-scale precision@10 {prec_a} < 0.99")
 
-    # --- 6. the main path at the benchmark size ---------------------------
+    # --- 6. the serving path at the benchmark size ------------------------
     t0 = time.perf_counter()
     ds = synthetic_powerlaw(65536, 16, seed=42, dense_threshold=0,
                             device=dev)
@@ -337,22 +586,50 @@ def main() -> int:
           f"{prec:.4f} (tie tol {tol:.3e}), raw {prec_raw:.4f}")
     check(prec >= 0.99, f"bench precision@10 {prec} < 0.99")
 
-    # --- launch counts of the main path ---------------------------------
-    launches = dense_power.launches
-    check(launches > 0, "K1 was not launched on the main path")
+    # --- launch counts of the serving path ------------------------------
+    serving = read_launches()
+    check(serving["k1"] > 0, "K1 was not launched on the serving path")
+    check(serving["k0"] == 1, "K0 did not run once on the serving path")
 
     # --- 7. where the time goes at the benchmark size ------------------
     profile_batch(algo, sources)
+
+    # --- 8. the protocol path ----------------------------------------------
+    protocol = protocol_path(dev)
+    launches = {k: serving[k] + protocol[k] for k in serving}
+    print(f"[launches] serving path {serving}, protocol path {protocol}")
+    source = "ppr_tpu_torch/csrc/dense_power.cu"
     print(json.dumps({"kernels": [{
         "name": "dense_power_iterations",
         "route": "cuda",
-        "source": "ppr_tpu_torch/csrc/dense_power.cu",
+        "source": source,
         "replaces": "ppr_tpu/ops/pallas_dense.py:191",
-        "launches": launches,
+        "launches": launches["k1"],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "shapes": k1["shapes"],
+    }, {
+        "name": "dense_pagerank_iterations",
+        "route": "cuda",
+        "source": source,
+        "replaces": "ppr_tpu/ops/pallas_dense.py:227",
+        "launches": launches["k2"],
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "shapes": k2["shapes"],
+    }, {
+        "name": "canary_probe",
+        "route": "cuda",
+        "source": "ppr_tpu_torch/csrc/probe.cu",
+        "replaces": "ppr_tpu/ops/pallas_dense.py:47",
+        "launches": launches["k0"],
+        "max_abs_err": k0["max_abs_err"],
+        "ms": k0["ms"],
+        "plain_ms": k0["plain_ms"],
+        "shapes": [{"shape": list(probe.SHAPE), "ms": k0["ms"],
+                    "plain_ms": k0["plain_ms"]}],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

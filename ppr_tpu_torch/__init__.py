@@ -17,6 +17,7 @@ from .graph.csr import Graph, build_graph, graph_from_numpy  # noqa: F401
 from .graph.io import (  # noqa: F401
     Dataset,
     load_default,
+    load_edge_list,
     load_got,
     load_neo4j_csv,
     synthetic_powerlaw,

@@ -1,8 +1,9 @@
 """Dataset loading — port of ``ppr_tpu/graph/io.py``.
 
-Neo4j-import CSV pairs and seeded synthetic graphs, loaded straight into a
-:class:`~ppr_tpu_torch.graph.csr.Graph` on the chosen device. The generators
-are numpy, so a seed gives the same edges as the JAX package.
+Neo4j-import CSV pairs, SNAP edge lists and seeded synthetic graphs, loaded
+straight into a :class:`~ppr_tpu_torch.graph.csr.Graph` on the chosen
+device. The generators are numpy, so a seed gives the same edges as the JAX
+package.
 """
 
 from __future__ import annotations
@@ -83,6 +84,53 @@ def load_neo4j_csv(
     )
     if name is None:
         name = os.path.splitext(os.path.basename(nodes_csv))[0]
+    return Dataset(graph=graph, names=names, name=name)
+
+
+def load_edge_list(
+    path: str,
+    *,
+    name: str | None = None,
+    comment: str = "#",
+    dense_threshold: int = 4096,
+    weighted: bool = False,
+    device=None,
+) -> Dataset:
+    """Load a whitespace-separated ``src dst`` edge list (SNAP style); ids
+    are densely remapped in first-appearance order. The parse is the JAX
+    package's pure-Python path (its native C++ reader is not ported);
+    ``weighted=True`` raises, as weighted graphs are not ported yet."""
+    if weighted:
+        raise NotImplementedError(
+            "weighted graphs are not ported yet (ROADMAP.md, queue 1, slice B)"
+        )
+    src_l, dst_l = [], []
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith(comment):
+                continue
+            parts = line.split()
+            src_l.append(int(parts[0]))
+            dst_l.append(int(parts[1]))
+    raw_src = np.asarray(src_l, np.int64)
+    raw_dst = np.asarray(dst_l, np.int64)
+
+    # dense remap in first-appearance order over the interleaved endpoints
+    stacked = np.empty(raw_src.size * 2, np.int64)
+    stacked[0::2] = raw_src
+    stacked[1::2] = raw_dst
+    uniq, first_pos = np.unique(stacked, return_index=True)
+    uniq_in_order = uniq[np.argsort(first_pos, kind="stable")]
+    lookup = np.empty(uniq.max() + 1 if uniq.size else 1, np.int64)
+    lookup[uniq_in_order] = np.arange(uniq_in_order.size)
+
+    graph = build_graph(lookup[raw_src], lookup[raw_dst],
+                        n=uniq_in_order.size,
+                        dense_threshold=dense_threshold, device=device)
+    if name is None:
+        name = os.path.splitext(os.path.basename(path))[0]
+    names = [str(int(orig)) for orig in uniq_in_order]
     return Dataset(graph=graph, names=names, name=name)
 
 

@@ -1,5 +1,5 @@
-"""Algorithm base class — port of ``PPRAlgorithm`` from
-``ppr_tpu/models/base.py``.
+"""Algorithm base classes — port of ``PPRAlgorithm`` and
+``PreprocessingMixin`` from ``ppr_tpu/models/base.py``.
 
 The native query unit is a batch of sources: algorithms implement
 ``compute_whole_graph_batch`` / ``compute_topk_batch`` returning dense
@@ -7,15 +7,23 @@ The native query unit is a batch of sources: algorithms implement
 (Whole_Graph_Util_Interface.java, Topk_Util_Interface.java) are thin
 adapters over a batch of one. Randomness comes from one ``torch.Generator``
 per algorithm, seeded once, on the graph's device.
+
+:class:`PreprocessingMixin` is the reference's Preprocessing_Interface
+(Preprocessing_Interface.java:3-16) over :class:`~..utils.store.PPRStore`.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from ..graph.io import Dataset
+from ..ops.compact import threshold_nonzeros
 from ..ops.topk import topk_ids_with_ties
+from ..utils.report import progress_printer
+from ..utils.store import PPRStore
 
 
 class PPRAlgorithm:
@@ -88,3 +96,96 @@ class PPRAlgorithm:
         if arr is None:
             raise RuntimeError("no PPR computed yet")
         return arr
+
+
+class PreprocessingMixin:
+    """Preprocessing_Interface backed by :class:`~..utils.store.PPRStore`.
+
+    The reference runs the whole-graph algorithm on every node in turn and
+    writes one text file per source (e.g. Monte_Carlo.java:181-232). Here
+    sources go in device batches: each batch's scores stay on the device
+    (``compute_whole_graph_device``), their positive entries are selected
+    there (``ops/compact.threshold_nonzeros``), and the batch lands as one
+    npz shard of the store, which resumes from its last complete shard.
+    """
+
+    prep_dirname: str = "PREP_ppr_results"
+    _store: PPRStore | None = None
+
+    def make_store(self, param) -> PPRStore:
+        root = os.path.join(self.prep_dirname, self.dataset.name, str(param))
+        return PPRStore(root, n=self.graph.n_pad)
+
+    def _prep_pending(self, param, batch_size: int = 128) -> bool:
+        """True when ``preprocessing(param)`` would do device work: the
+        store is finalized (a new run starts from scratch) or a batch shard
+        is missing."""
+        store = self.make_store(param)
+        if store._read_manifest().get("finalized"):
+            return True
+        return any(not store.has_batch(s)
+                   for s in range(0, self.graph.n, batch_size))
+
+    def preprocessing(self, threshold, param, *, batch_size: int = 128,
+                      progress: bool = True) -> None:
+        store = self.make_store(param)
+        store.reset()
+        report = progress_printer(self.graph.n, enabled=progress)
+        self._preprocessing_sweep(store, param, batch_size, report)
+        store.finalize(alpha=self.alpha)
+        self._store = store
+
+    def _compact_batch(self, sources: np.ndarray, param):
+        """Positive entries of one batch: ``(rows, cols, vals)`` host arrays
+        in row-major order (strict ``> 0``, the store's keep rule)."""
+        return threshold_nonzeros(
+            self.compute_whole_graph_device(sources, param),
+            self.graph.node_mask, 0.0, rows=len(sources), exclusive=True,
+        )
+
+    def _preprocessing_sweep(self, store: PPRStore, param, batch_size: int,
+                             report) -> None:
+        n = self.graph.n
+        for start in range(0, n, batch_size):
+            if store.has_batch(start):
+                continue
+            sources = np.arange(start, min(start + batch_size, n))
+            rows, cols, vals = self._compact_batch(sources, param)
+            ptr = np.concatenate(
+                [[0], np.cumsum(np.bincount(rows, minlength=len(sources)))])
+            store.write_batch_ordered(
+                start, sources,
+                [cols[ptr[i]:ptr[i + 1]].astype(np.int32)
+                 for i in range(len(sources))],
+                [vals[ptr[i]:ptr[i + 1]] for i in range(len(sources))],
+            )
+            report(min(start + batch_size, n) - 1)
+
+    def warm_preprocessing(self, threshold, param, *,
+                           batch_size: int = 128) -> None:
+        """Run one source batch through the path ``preprocessing`` times and
+        discard it (the harness calls this untimed, as it warms queries):
+        the first launch builds the kernels and fills the allocator."""
+        self._compact_batch(np.arange(min(batch_size, self.graph.n)), param)
+
+    def attach_store(self, param) -> None:
+        """Attach a store persisted earlier, to answer queries from it."""
+        self._store = self.make_store(param)
+
+    def read_preprocessed_ppr(self, source: int, param=None) -> None:
+        if self._store is None:
+            if param is None:
+                raise RuntimeError(
+                    "no store attached: run preprocessing() or "
+                    "attach_store(param) first"
+                )
+            self.attach_store(param)
+        self._last_scores = self._store.read_row(int(source))
+        self._last_topk_scores = None
+
+    def get_prep_size(self) -> int:
+        return self._store.size_bytes() if self._store else 0
+
+    def delete_prep_dir(self) -> None:
+        if self._store:
+            self._store.delete()

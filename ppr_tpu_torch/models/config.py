@@ -1,7 +1,8 @@
 """Algorithm configuration / factory — port of ``ppr_tpu/models/config.py``
 (Algo_Conf.java and the newAlgoObj switch of Gen_Util.java:66-97) for the
-algorithms ported so far: FORA top-k and the power method. The other types
-raise until their slice lands (ROADMAP.md, queue 1)."""
+algorithms ported so far: FORA top-k, the power method and the Neo4j
+method. The other types raise until their slice lands (ROADMAP.md,
+queue 1)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import enum
 
 from ..graph.io import Dataset
 from .fora import ForaTopk
+from .neo4j_method import Neo4jMethod
 from .power_method import PowerMethod
 
 
@@ -36,12 +38,17 @@ class AlgoConf:
     def set_conf_fora_topk(self, dataset: Dataset, k: int) -> ForaTopk:
         return ForaTopk(dataset, self.alpha, k=k, seed=self.seed)
 
+    def set_conf_neo4j_method(self, dataset: Dataset) -> Neo4jMethod:
+        return Neo4jMethod(dataset, self.alpha, seed=self.seed)
+
     def new_algo_obj(self, algo: AlgoType, dataset: Dataset, k: int = -1):
         """The newAlgoObj factory switch (Gen_Util.java:66-97)."""
         if algo == AlgoType.POWER_METHOD:
             return self.set_conf_power_method(dataset)
         if algo == AlgoType.FORA_TOPK:
             return self.set_conf_fora_topk(dataset, k)
+        if algo == AlgoType.NEO4J_METHOD:
+            return self.set_conf_neo4j_method(dataset)
         if isinstance(algo, AlgoType):
             raise NotImplementedError(
                 f"{algo.value} is not ported yet (ROADMAP.md, queue 1)"

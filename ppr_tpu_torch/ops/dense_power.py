@@ -1,19 +1,26 @@
-"""K1: fused dense PPR propagation — port of
-``ppr_tpu/ops/pallas_dense.py::dense_power_iterations``.
+"""K1 and K2: fused dense propagation — ports of
+``ppr_tpu/ops/pallas_dense.py::dense_power_iterations`` and
+``::dense_pagerank_iterations``.
 
 For graphs with a dense operator ``W = g.dense_out`` of ``n_pad <= 1024``,
-one CUDA kernel (``csrc/dense_power.cu``) runs all ``iters`` rounds of
+one CUDA kernel (``csrc/dense_power.cu``) runs all ``iters`` rounds with
+the batch state on chip. K1, the power method:
 
     p += alpha * r
     r  = (1-alpha) * [ (r - r_dang) @ W + sum(r_dang) * e_src ]
 
-with the batch state on chip. ``dangling_to_source=False`` drops the
-``sum(r_dang)`` term (the Neo4j-library semantics). The product is full f32
-(FP32 FMA), as the TPU kernel's ``Precision.HIGHEST``.
+(``dangling_to_source=False`` drops the ``sum(r_dang)`` term). K2, the
+Neo4j-library iteration, un-normalized:
 
-:func:`dense_power_iterations_ref` is the same computation in plain PyTorch.
-The wrapper runs it only for a tensor that lies on the CPU; for a CUDA
-tensor it launches the kernel or raises.
+    x = (1-d) * e_src + d * x @ W,    x0 = (1-d) * e_src
+
+The products are full f32 (FP32 FMA), as the TPU kernels'
+``Precision.HIGHEST``.
+
+``*_ref`` are the same computations in plain PyTorch. A wrapper runs its
+plain version only for a tensor that lies on the CPU; for a CUDA tensor it
+runs the toolchain probe K0 once (``ops/probe.py``, where the JAX package
+runs its canary), then launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -24,12 +31,14 @@ import torch
 
 from ..device import set_exact_f32_matmul
 from ..graph.csr import Graph
-from . import cuda_build
+from . import cuda_build, probe
 
 MAX_N_PAD = 1024
 
-#: kernel launches in this process (reset it to count a run's launches)
+#: K1 launches in this process (reset it to count a run's launches)
 launches = 0
+#: K2 launches in this process
+pagerank_launches = 0
 
 
 def supports(g: Graph) -> bool:
@@ -63,30 +72,24 @@ def dense_power_iterations_ref(g: Graph, src_onehot: torch.Tensor,
     return p
 
 
-def _load():
-    lib = cuda_build.load_library("dense_power")
-    fn = lib.ppr_dense_power_iterations
-    if fn.argtypes is None:
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, cf, cf, ci, vp]
-        fn.restype = ci
-    return lib, fn
+def dense_pagerank_iterations_ref(g: Graph, src_onehot: torch.Tensor,
+                                  damping: float, iters: int) -> torch.Tensor:
+    """Plain PyTorch K2: the un-normalized ``x``, f32 ``[B, n_pad]``."""
+    set_exact_f32_matmul()
+    base = (1.0 - damping) * src_onehot
+    x = base
+    for _ in range(iters):
+        x = base + damping * torch.matmul(x, g.dense_out)
+    return x
 
 
-def dense_power_iterations(g: Graph, src_onehot: torch.Tensor, alpha: float,
-                           iters: int, *, dangling_to_source: bool = True
-                           ) -> torch.Tensor:
-    """Fused propagation; returns the reserve ``p`` (f32 ``[B, n_pad]``)."""
-    global launches
-    if src_onehot.device.type == "cpu":
-        return dense_power_iterations_ref(
-            g, src_onehot, alpha, iters, dangling_to_source=dangling_to_source
-        )
+def _kernel_operands(g: Graph, src_onehot: torch.Tensor, what: str):
+    """Check what the CUDA kernels take; returns ``(W, n_pad)``."""
     if not src_onehot.is_cuda:
         raise ValueError(f"unsupported device {src_onehot.device}")
     w = g.dense_out
     if w is None:
-        raise ValueError("dense_power_iterations needs a dense operator")
+        raise ValueError(f"{what} needs a dense operator")
     n = g.n_pad
     if n > MAX_N_PAD or n % 4:
         raise ValueError(f"n_pad={n}: the kernel takes n_pad <= {MAX_N_PAD}, "
@@ -99,12 +102,40 @@ def dense_power_iterations(g: Graph, src_onehot: torch.Tensor, alpha: float,
     if src_onehot.dim() != 2 or src_onehot.shape[1] != n:
         raise ValueError(f"src_onehot must be [B, {n}], got "
                          f"{tuple(src_onehot.shape)}")
+    return w, n
+
+
+def _load(symbol: str, argtypes):
+    lib = cuda_build.load_library("dense_power")
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def dense_power_iterations(g: Graph, src_onehot: torch.Tensor, alpha: float,
+                           iters: int, *, dangling_to_source: bool = True
+                           ) -> torch.Tensor:
+    """K1, fused propagation; returns the reserve ``p`` (f32
+    ``[B, n_pad]``)."""
+    global launches
+    if src_onehot.device.type == "cpu":
+        return dense_power_iterations_ref(
+            g, src_onehot, alpha, iters, dangling_to_source=dangling_to_source
+        )
+    w, n = _kernel_operands(g, src_onehot, "dense_power_iterations")
     b = src_onehot.shape[0]
     out = torch.empty_like(src_onehot)
     if b == 0:
         return out
+    probe.ensure(src_onehot.device)
     dang = _dangling_mask(g).contiguous()
-    lib, fn = _load()
+    lib, fn = _load("ppr_dense_power_iterations",
+                    [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CF, _CF, _CI, _VP])
     with torch.cuda.device(src_onehot.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(w.data_ptr(), src_onehot.data_ptr(), dang.data_ptr(),
@@ -112,4 +143,31 @@ def dense_power_iterations(g: Graph, src_onehot: torch.Tensor, alpha: float,
                 1.0 - float(alpha), int(dangling_to_source), stream)
     cuda_build.check(lib, rc, "dense_power_iterations")
     launches += 1
+    return out
+
+
+def dense_pagerank_iterations(g: Graph, src_onehot: torch.Tensor,
+                              damping: float, iters: int) -> torch.Tensor:
+    """K2, the fused Neo4j-style personalized PageRank; returns the
+    un-normalized ``x`` (f32 ``[B, n_pad]``). ``iters = 0`` gives
+    ``(1-d) * src_onehot``."""
+    global pagerank_launches
+    if src_onehot.device.type == "cpu":
+        return dense_pagerank_iterations_ref(g, src_onehot, damping, iters)
+    w, n = _kernel_operands(g, src_onehot, "dense_pagerank_iterations")
+    if iters < 0:
+        raise ValueError(f"iters={iters} < 0")
+    b = src_onehot.shape[0]
+    out = torch.empty_like(src_onehot)
+    if b == 0:
+        return out
+    probe.ensure(src_onehot.device)
+    lib, fn = _load("ppr_dense_pagerank_iterations",
+                    [_VP, _VP, _VP, _CI, _CI, _CI, _CF, _CF, _VP])
+    with torch.cuda.device(src_onehot.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(w.data_ptr(), src_onehot.data_ptr(), out.data_ptr(), b, n,
+                int(iters), float(damping), 1.0 - float(damping), stream)
+    cuda_build.check(lib, rc, "dense_pagerank_iterations")
+    pagerank_launches += 1
     return out

@@ -105,3 +105,22 @@ def test_neo4j_csv_loader(tmp_path):
     td = tio.load_neo4j_csv(str(nodes), str(rels), device="cpu")
     assert td.names == ["Arya", "Bran", "Cersei"] and td.name == jd.name
     assert_same_graph(jd.graph, td.graph)
+
+
+@pytest.mark.parametrize("dense_threshold", [4096, 0],
+                         ids=["dense", "sparse"])
+def test_edge_list_loader(tmp_path, dense_threshold):
+    # comments, a blank line, a self loop, sparse ids, a duplicate edge
+    path = tmp_path / "snap.txt"
+    path.write_text("# Directed graph (each unordered pair of nodes)\n"
+                    "# FromNodeId\tToNodeId\n"
+                    "100\t7\n7\t100\n7\t7\n\n"
+                    "90000\t100\n100  3\n3\t90000\n100\t7\n")
+    jd = jio.load_edge_list(str(path), dense_threshold=dense_threshold)
+    td = tio.load_edge_list(str(path), dense_threshold=dense_threshold,
+                            device="cpu")
+    assert td.names == jd.names == ["100", "7", "90000", "3"]
+    assert td.name == jd.name == "snap" and (td.n, td.graph.m) == (4, 7)
+    assert_same_graph(jd.graph, td.graph)
+    with pytest.raises(NotImplementedError):
+        tio.load_edge_list(str(path), weighted=True)

@@ -21,12 +21,20 @@ MODULES = [
     "ppr_tpu_torch.ops.topk",
     "ppr_tpu_torch.ops.cuda_build",
     "ppr_tpu_torch.ops.dense_power",
+    "ppr_tpu_torch.ops.probe",
+    "ppr_tpu_torch.ops.compact",
     "ppr_tpu_torch.models.base",
     "ppr_tpu_torch.models.power_method",
     "ppr_tpu_torch.models.fora",
+    "ppr_tpu_torch.models.neo4j_method",
     "ppr_tpu_torch.models.config",
     "ppr_tpu_torch.utils.metrics",
+    "ppr_tpu_torch.utils.store",
+    "ppr_tpu_torch.utils.report",
+    "ppr_tpu_torch.utils.timer",
     "ppr_tpu_torch.service",
+    "ppr_tpu_torch.harness",
+    "ppr_tpu_torch.cli",
 ]
 
 _PROBE = """
