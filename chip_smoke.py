@@ -10,8 +10,9 @@ Phases, one or more printed lines each; any failed check raises and the
 script exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch build;
-2. build: ``ppr_tpu_torch/csrc/dense_power.cu`` (K1, K2) and
-   ``csrc/probe.cu`` (K0), one nvcc each, started together; ptxas lines;
+2. build: ``ppr_tpu_torch/csrc/dense_power.cu`` (K1, K2),
+   ``csrc/probe.cu`` (K0) and ``csrc/row_gather.cu`` (K3 and the
+   row-gather probes P1-P4), one nvcc each, started together; ptxas lines;
 3. K0, the toolchain probe, against ``2 * x`` bit for bit;
 4. K1 against its plain PyTorch version and against the sparse power
    method, on the 107-node GOT-scale graph (n_pad 128, B 50) and on a
@@ -19,31 +20,44 @@ script exits non-zero:
    times of 10 CUDA-event-timed runs;
 5. K2 against its plain version and, normalized, against the sparse
    Neo4j iteration, at the same two shapes, 300 rounds;
-6. the serving path: the oracle (``PowerMethod``, through K1) on the
+6. K3 (``gather_segment_sum``) against its plain version
+   (``index_select`` + ``segment_reduce``) at the benchmark's tail (B
+   2048) and at the sparse ca-GrQc-scale graph's by-destination (forward
+   push, B 50) and by-source (backward push, B 50 and BASE's batch of
+   512 targets) edge orders; then ``row_gather`` at P1's shape and P4's
+   four configurations, in ns a row beside ``index_select`` (P4's
+   ``gather_accum`` is K3 beside ``index_add_``);
+7. the serving path: the oracle (``PowerMethod``, through K1) on the
    GOT-scale graph; FORA top-k serving (``PPRService.top_k``) there,
    precision@10 against that oracle; and the benchmark size (65,536
-   nodes, ~1M edges, B 2048, 4096 bf16 hubs): throughput, sweep count,
-   precision@10 of the timed call against the port's power method, which
-   is itself checked against a float64 scipy power iteration;
-7. a ``torch.profiler`` trace of one more batch at that size: kernel time
-   by operator, the span from first to last kernel, and the device's idle
-   share in it. The chrome trace is written to
+   nodes, ~1M edges, B 2048, 4096 bf16 hubs, the tail through K3):
+   throughput, sweep count, peak memory, precision@10 of the timed call
+   against the port's power method, which is itself checked against a
+   float64 scipy power iteration;
+8. a ``torch.profiler`` trace of one more batch at that size: kernel time
+   by operator, K3's share, the span from first to last kernel, and the
+   device's idle share in it. The chrome trace is written to
    ``build/ppr_tpu_torch/bench_trace.json``;
-8. the protocol path: the port's CLI (``ppr_tpu_torch.cli.main``)
-   in-process, run from ``build/ppr_tpu_torch/protocol/<graph>/`` (its
+9. the protocol path: the port's CLI (``ppr_tpu_torch.cli.main``)
+   in-process, run from ``build/ppr_tpu_torch/protocol/<run>/`` (its
    preprocessing stores land there, its output goes to ``cli.log``), on
-   the GOT-scale graph (Neo4j method Tests 1-3 and FORA top-k Test 2), on
-   the 1000-node graph (Tests 1 and 3, through K2 at n_pad 1024), and on
-   the sparse ca-GrQc-scale graph (Tests 1 and 2, no K2); each row's
-   accuracy is held to a bar, and a preprocessing store is read back
-   against a direct K2 launch.
+   the GOT-scale graph (Neo4j method Tests 1-3 and FORA top-k Test 2; then
+   Forward Push and BASE, Tests 1-3, as a run of their own), on the
+   1000-node graph (Tests 1 and 3, through K2 at n_pad 1024), and on the
+   sparse ca-GrQc-scale graph (the Neo4j method, then Forward Push and
+   BASE, Tests 1 and 2; no K2, K3 in every push). Each row's accuracy is
+   held to a bar: the Neo4j rows to fixed bars, the Forward Push and
+   BASE rows to the JAX package's values for the same command on the CPU
+   (``JAX_ROWS``). A Neo4j store is read back against a direct K2 launch,
+   and a Forward Push store against a direct push.
 
-Launch counts are reset before the serving path (6) and read after it,
-and again before and after the protocol path (8); a reset also forgets
-the probe, so each path runs K0 once before its first dense kernel. The
+Launch counts are reset before the serving path (7) and read after it,
+and again before and after the protocol path (9); a reset also forgets
+the probe, so each path runs K0 once before its first hand kernel. The
 last three lines are the kernels' JSON record (``launches`` summed over
-the two paths; ``ms`` and ``plain_ms`` at the 107-node shape, and
-``shapes`` with both shapes' times), the card line, and
+the two paths; ``row_gather`` is a microbenchmark, as P1-P4 were on the
+TPU, so no path launches it; ``ms`` and ``plain_ms`` at one shape each,
+and ``shapes`` with every shape's times), the card line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script prints
 no result and exits 1.
 """
@@ -69,6 +83,59 @@ K2_ITERS = 300
 K2_TOL = 2e-5      # x keeps unit mass, so its rounding builds up over rounds
 PROTOCOL_ERR = 1e-6
 PROTOCOL_DIR = os.path.join("build", "ppr_tpu_torch", "protocol")
+K3_TOL = 1e-5      # K3 vs plain, relative to the row's largest magnitude
+BASE_BATCH = 512   # BaseAllPair's default target_batch
+
+# The JAX package's rows for the same commands on the CPU (JAX_PLATFORMS=
+# cpu python -m ppr_tpu.cli --db <graph> --query 50 --k 10 --algos
+# FWDPUSH,BASE_WHOLE_GRAPH, --sweep got --tests 1,2,3 and --tests 1,2):
+# max-err for Tests 1 and 3, precision for Test 2, by sweep value. The
+# bars: Forward Push max-err within 1% + 1e-7, BASE's within 1e-3 (it
+# keeps only pi >= threshold, so its error is that cut, not rounding);
+# precision within 0.002, one id of the 500.
+JAX_ROWS = {
+    "got": {
+        (1, "FWDPUSH"): {
+            "0.0001": 5.396546423435211e-04, "1e-05": 5.796276032924652e-05,
+            "1e-06": 6.0315430164337155e-06, "1e-07": 5.520880222320556e-07,
+            "1e-08": 6.280839443206787e-08},
+        (1, "BASE_WHOLE_GRAPH"): {
+            "0.001": 0.1436264109611511, "0.0005": 0.270123892724514,
+            "5e-05": 0.30675475746393205, "1e-06": 0.15523052603006363,
+            "5e-07": 0.16317448645830154},
+        (2, "BASE_WHOLE_GRAPH"): {
+            "0.001": 1.0, "0.0005": 1.0, "5e-05": 1.0, "1e-06": 1.0,
+            "5e-07": 1.0},
+        (2, "FWDPUSH"): {
+            "0.0001": 0.998, "1e-05": 0.9981818181818182,
+            "1e-06": 0.9981818181818182, "1e-07": 0.9963636363636365,
+            "1e-08": 1.0},
+        (3, "FWDPUSH"): {
+            "0.0001": 5.382286757230759e-04, "1e-05": 5.965188145637512e-05,
+            "1e-06": 6.319507956504822e-06, "1e-07": 6.040185689926147e-07,
+            "1e-08": 6.660819053649902e-08},
+        (3, "BASE_WHOLE_GRAPH"): {
+            "0.001": 0.12949755042791367, "0.0005": 0.29791304767131804,
+            "5e-05": 0.22728278249502182, "1e-06": 0.14193972259759902,
+            "5e-07": 0.24812805980443955},
+    },
+    "grqc": {
+        (1, "FWDPUSH"): {
+            "0.0001": 4.18774276971817e-03, "1e-05": 7.52914845943451e-04,
+            "1e-06": 9.821891784667968e-05, "1e-07": 1.0899603366851807e-05,
+            "1e-08": 1.169741153717041e-06},
+        (1, "BASE_WHOLE_GRAPH"): {
+            "0.001": 0.3595228758454323, "0.0005": 0.22844475865364075,
+            "5e-05": 0.3870604604482651, "1e-06": 0.24909481287002563,
+            "5e-07": 0.30054815113544464},
+        (2, "BASE_WHOLE_GRAPH"): {
+            "0.001": 0.9940000000000001, "0.0005": 0.998, "5e-05": 1.0,
+            "1e-07": 1.0, "5e-08": 1.0},
+        (2, "FWDPUSH"): {
+            "0.0001": 0.9821818181818182, "1e-06": 0.9981818181818182,
+            "5e-08": 0.9946969696969696, "7e-09": 1.0, "7e-10": 1.0},
+    },
+}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -145,6 +212,122 @@ def tie_tolerant_ids(vals, ids, n_rows, tol):
             for i in range(n_rows)]
 
 
+def rel_err(got, want) -> float:
+    """The largest ``|got - want|`` of a row over that row's largest
+    ``|want|``."""
+    scale = want.abs().amax(dim=1).clamp_min(1e-30)
+    return float(((got - want).abs().amax(dim=1) / scale).max())
+
+
+def k3_phase(dev, bench_g, hs, grqc_g) -> dict:
+    """K3 against its plain version at the shapes the paths give it: the
+    benchmark's tail edges at B 2048 (FORA serving) and the sparse
+    ca-GrQc-scale graph's by-destination (forward push) and by-source
+    (backward push) orders at B 50, and by source at BASE's batch of 512
+    targets, which takes the 16-byte loads."""
+    import torch
+
+    from ppr_tpu_torch.ops import row_gather as rgm
+
+    out = {"max_abs_err": 0.0, "shapes": []}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for label, n_rows, src, ptr, b in (
+        ("bench tail", bench_g.n_pad, hs.tail_src, hs.tail_ptr, 2048),
+        ("grqc by-dst", grqc_g.n_pad, grqc_g.edge_src_bydst,
+         grqc_g.bydst_ptr, 50),
+        ("grqc by-src", grqc_g.n_pad, grqc_g.edge_dst, grqc_g.bysrc_ptr, 50),
+        ("grqc by-src, BASE batch", grqc_g.n_pad, grqc_g.edge_dst,
+         grqc_g.bysrc_ptr, BASE_BATCH),
+    ):
+        table = torch.rand((n_rows, b), device=dev, generator=gen)
+        got = rgm.gather_segment_sum(table, src, ptr)
+        want = rgm.gather_segment_sum_ref(table, src, ptr)
+        torch.cuda.synchronize()
+        err, rel = float((got - want).abs().max()), rel_err(got, want)
+        ms = cuda_ms(lambda: rgm.gather_segment_sum(table, src, ptr))
+        plain_ms = cuda_ms(lambda: rgm.gather_segment_sum_ref(table, src, ptr))
+        edges = int(ptr[-1])
+        print(f"[k3] {label}: {ptr.shape[0] - 1} segments, {edges} edges, "
+              f"B={b}: max abs err {err:.3e} (relative to the row "
+              f"{rel:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(median of 10), {plain_ms / ms:.2f}x")
+        check(rel <= K3_TOL, f"K3 {label}: relative error {rel} > {K3_TOL}")
+        check(bool(torch.isfinite(got).all()), f"K3 {label}: not finite")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["shapes"].append({"case": label, "segments": ptr.shape[0] - 1,
+                              "edges": edges, "cols": b, "ms": ms,
+                              "plain_ms": plain_ms})
+        del table, got, want
+    out.update(ms=out["shapes"][0]["ms"], plain_ms=out["shapes"][0]["plain_ms"])
+    return out
+
+
+def gather_probes(dev, k3: dict) -> dict:
+    """``row_gather`` at P1's shape (P2 and P3 gather the same rows) and
+    P4's ``gather`` configurations, against ``index_select``; P4's
+    ``gather_accum`` through K3 (destinations sorted once, stably) against
+    ``index_add_``. Adds the accumulate case to ``k3['shapes']``."""
+    import torch
+
+    from ppr_tpu_torch.ops import row_gather as rgm
+
+    def ns_per_row(ms, rows):
+        return ms * 1e6 / rows
+
+    out = {"max_abs_err": 0.0, "shapes": []}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for label, n, b, w, mode in (("P1-P3", 4096, 256, 512, "gather"),
+                                 ("P4", 4096, 128, 8192, "gather"),
+                                 ("P4", 4096, 512, 8192, "gather"),
+                                 ("P4", 4096, 512, 8192, "gather_accum"),
+                                 ("P4", 16384, 512, 8192, "gather")):
+        table = torch.rand((n, b), device=dev, generator=gen)
+        i = torch.arange(w, device=dev)
+        src = (i * 7919 % n).to(torch.int32)
+        if mode == "gather":
+            got = rgm.row_gather(table, src)
+            torch.cuda.synchronize()
+            check(torch.equal(got, rgm.row_gather_ref(table, src)),
+                  f"row_gather {label} [{n}, {b}]: differs from index_select")
+            ms = cuda_ms(lambda: rgm.row_gather(table, src))
+            plain_ms = cuda_ms(lambda: rgm.row_gather_ref(table, src))
+            err, plain = 0.0, "index_select"
+        else:
+            dst = i * 104729 % 512
+            order = torch.sort(dst, stable=True).indices
+            src_s = src[order].contiguous()
+            ptr = torch.searchsorted(dst[order], torch.arange(513, device=dev))
+
+            def plain_accum():
+                return torch.zeros((512, b), device=dev).index_add_(
+                    0, dst, table.index_select(0, src))
+
+            got = rgm.gather_segment_sum(table, src_s, ptr)
+            want = plain_accum()
+            torch.cuda.synchronize()
+            err, rel = float((got - want).abs().max()), rel_err(got, want)
+            check(rel <= K3_TOL, f"K3 {label} accumulate: relative error "
+                  f"{rel} > {K3_TOL}")
+            ms = cuda_ms(lambda: rgm.gather_segment_sum(table, src_s, ptr))
+            plain_ms = cuda_ms(plain_accum)
+            plain = "index_select + index_add_"
+        print(f"[p1-p4] {label} {mode} table [{n}, {b}], {w} rows: kernel "
+              f"{ns_per_row(ms, w):.2f} ns/row ({ms:.4f} ms), {plain} "
+              f"{ns_per_row(plain_ms, w):.2f} ns/row ({plain_ms:.4f} ms); "
+              f"max abs err {err:.3e}")
+        shape = {"case": f"{label} {mode}", "table": [n, b], "rows": w,
+                 "ms": ms, "plain_ms": plain_ms,
+                 "ns_per_row": ns_per_row(ms, w),
+                 "plain_ns_per_row": ns_per_row(plain_ms, w)}
+        if mode == "gather":
+            out["shapes"].append(shape)
+        else:
+            k3["shapes"].append(shape)
+            k3["max_abs_err"] = max(k3["max_abs_err"], err)
+    out.update(ms=out["shapes"][0]["ms"], plain_ms=out["shapes"][0]["plain_ms"])
+    return out
+
+
 def profile_batch(algo, sources) -> None:
     """Trace one ``compute_topk_ids_batch``; print device time by aten
     operator, the kernels' span and the idle share inside it."""
@@ -162,9 +345,9 @@ def profile_batch(algo, sources) -> None:
     wall_ms = (time.perf_counter() - t0) * 1e3
     prof.export_chrome_trace(path)
     with open(path) as f:
-        kernels = [(e["ts"], e["ts"] + e["dur"])
-                   for e in json.load(f)["traceEvents"]
-                   if e.get("cat") == "kernel"]
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel"]
+    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events]
     check(bool(kernels), "the profiler recorded no kernel")
     busy_us, covered_to = 0.0, float("-inf")
     for start, end in sorted(kernels):
@@ -176,6 +359,12 @@ def profile_batch(algo, sources) -> None:
           f"busy {busy_us / 1e3:.1f} ms in a span of {span_us / 1e3:.1f} ms "
           f"(idle {100 * (1 - busy_us / span_us):.1f}%), host wall "
           f"{wall_ms:.1f} ms; trace {path}")
+    mine = [e["dur"] for e in events
+            if "ppr_gather_segment_sum_kernel" in e.get("name", "")]
+    check(bool(mine), "the traced batch ran no K3")
+    print(f"[profile] {'K3 gather_segment_sum':32s} {sum(mine) / 1e3:9.2f} ms "
+          f"{100 * sum(mine) / busy_us:5.1f}% {len(mine):6d} launches "
+          f"{sum(mine) / 1e3 / sweeps:7.3f} ms/sweep")
     # kernels also appear under their own names: keep the aten operators
     ops = [e for e in prof.key_averages()
            if e.key.startswith("aten::") and e.self_device_time_total > 0]
@@ -189,19 +378,22 @@ def profile_batch(algo, sources) -> None:
 
 def reset_launches() -> None:
     """Zero every kernel's launch count; forget the probe, so K0 runs
-    again before the next dense-kernel launch."""
-    from ppr_tpu_torch.ops import dense_power, probe
+    again before the next hand-kernel launch."""
+    from ppr_tpu_torch.ops import dense_power, probe, row_gather
 
     dense_power.launches = 0
     dense_power.pagerank_launches = 0
+    row_gather.segment_sum_launches = 0
+    row_gather.gather_launches = 0
     probe.reset()
 
 
 def read_launches() -> dict[str, int]:
-    from ppr_tpu_torch.ops import dense_power, probe
+    from ppr_tpu_torch.ops import dense_power, probe, row_gather
 
     return {"k1": dense_power.launches, "k2": dense_power.pagerank_launches,
-            "k0": probe.launches}
+            "k0": probe.launches, "k3": row_gather.segment_sum_launches,
+            "gather": row_gather.gather_launches}
 
 
 def protocol_rows(path: str) -> dict[tuple[int, str], list[list[str]]]:
@@ -247,50 +439,100 @@ def run_protocol(tag: str, argv: list[str]):
 
 
 def check_protocol_rows(tag: str, rows, *, top_iters=40, err_iters=100,
-                        err=PROTOCOL_ERR) -> None:
-    """Print every row and hold the Neo4j rows to the bars: max-err <= err
-    from ``err_iters`` iterations, precision 1.0 and NDCG >= 0.999 from
-    ``top_iters``; preprocessing bytes > 0; every number finite."""
+                        err=PROTOCOL_ERR, jax_rows=None) -> None:
+    """Print every row and hold it to its bar: the Neo4j rows to max-err
+    <= err from ``err_iters`` iterations, precision 1.0 and NDCG >= 0.999
+    from ``top_iters``; the Forward Push and BASE rows to ``jax_rows``,
+    every one of which must be present; preprocessing bytes > 0; every
+    number finite.
+
+    Row formats (Gen_Util.java): Test 1 ``param, ms, err``; Test 2 ``param,
+    k, ms, precision, NDCG``; Test 3 ``param, threshold, prep_ms, bytes,
+    err``. BASE's rows carry ``-1, threshold`` (Tests 1 and 3) or
+    ``threshold, k`` (Test 2), then ``prep_ms, bytes``, then its query ms
+    (Tests 1 and 2) and the accuracy fields. So ``prep_ms, bytes`` are the
+    third and fourth fields wherever they appear."""
     check(bool(rows), f"[protocol:{tag}] no result rows")
+    seen = set()
     for (test, algo), section in sorted(rows.items()):
+        base = algo == "BASE_WHOLE_GRAPH"
         for fields in section:
-            param = float(fields[0])
             check(all(np.isfinite(float(x)) for x in fields),
                   f"[protocol:{tag}] {test} {algo} {fields}: not finite")
-            if test == 1:
-                ms, e = float(fields[1]), float(fields[2])
-                line = f"{ms:.3f} ms/query, max-err {e:.3e}"
-            elif test == 2:
-                ms, prec, ndcg = (float(x) for x in fields[2:5])
-                line = (f"{ms:.3f} ms/query, precision {prec:.4f}, "
-                        f"NDCG {ndcg:.6f}")
-            else:
-                ms, nbytes, e = (float(fields[2]), int(fields[3]),
-                                 float(fields[4]))
-                line = (f"prep_ms {ms:.1f}, store {nbytes} bytes, "
-                        f"max-err {e:.3e}")
+            value = fields[1] if base and test != 2 else fields[0]
+            prep = ""
+            if base or test == 3:
+                ms, nbytes = float(fields[2]), int(fields[3])
                 check(nbytes > 0, f"[protocol:{tag}] empty store: {fields}")
-            print(f"[protocol:{tag}] test {test} {algo} param {fields[0]}: "
-                  f"{line}")
-            if algo != "NEO4J_METHOD":
+                prep = f"prep_ms {ms:.1f}, store {nbytes} bytes, "
+            if test == 2:
+                q_ms, prec, ndcg = (float(x) for x in fields[-3:])
+                line = (f"{q_ms:.3f} ms/query, precision {prec:.4f}, "
+                        f"NDCG {ndcg:.6f}")
+                got = prec
+            else:
+                e = float(fields[-1])
+                line = f"max-err {e:.3e}"
+                if test == 1:
+                    line = f"{float(fields[-2]):.3f} ms/query, {line}"
+                got = e
+            print(f"[protocol:{tag}] test {test} {algo} param {value}: "
+                  f"{prep}{line}")
+            if algo == "NEO4J_METHOD":
+                param = float(value)
+                if test in (1, 3) and param >= err_iters:
+                    check(e <= err, f"[protocol:{tag}] test {test} iters "
+                          f"{value}: max-err {e} > {err}")
+                if test == 2 and param >= top_iters:
+                    check(prec == 1.0 and ndcg >= 0.999,
+                          f"[protocol:{tag}] test 2 iters {value}: "
+                          f"precision {prec}, NDCG {ndcg}")
+            want = (jax_rows or {}).get((test, algo), {}).get(value)
+            if want is None:
                 continue
-            if test in (1, 3) and param >= err_iters:
-                check(e <= err, f"[protocol:{tag}] test {test} iters "
-                      f"{fields[0]}: max-err {e} > {err}")
-            if test == 2 and param >= top_iters:
-                check(prec == 1.0 and ndcg >= 0.999,
-                      f"[protocol:{tag}] test 2 iters {fields[0]}: "
-                      f"precision {prec}, NDCG {ndcg}")
+            seen.add((test, algo, value))
+            bar = (0.002 if test == 2 else
+                   1e-3 if base else 0.01 * want + 1e-7)
+            check(abs(got - want) <= bar,
+                  f"[protocol:{tag}] test {test} {algo} {value}: {got} vs "
+                  f"JAX's {want} (bar {bar:.3g})")
+    missing = {(t, a, v) for (t, a), vals in (jax_rows or {}).items()
+               for v in vals} - seen
+    check(not missing, f"[protocol:{tag}] rows missing: {sorted(missing)}")
+
+
+def read_back(algo, work: str, param, sources, direct):
+    """Preprocess ``algo`` at ``param`` from ``work`` (a store's root is
+    relative to the CWD), read the rows of ``sources`` back and return
+    their largest distance from ``direct``, the store's bytes and the
+    preprocessing seconds. The store is deleted."""
+    err = 0.0
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        t0 = time.perf_counter()
+        algo.preprocessing(-1.0, param, progress=False)
+        secs = time.perf_counter() - t0
+        for i, s in enumerate(sources):
+            algo.read_preprocessed_ppr(int(s))
+            err = max(err, float(np.abs(algo.get_whole_graph_dense()
+                                        - direct[i]).max()))
+        nbytes = algo.get_prep_size()
+        algo.delete_prep_dir()
+    finally:
+        os.chdir(cwd)
+    return err, nbytes, secs
 
 
 def protocol_path(dev) -> dict[str, int]:
     """The protocol CLI on three graphs; returns the path's launch
-    counts."""
+    counts, read before the stores' read-back checks."""
     import torch
 
     from ppr_tpu_torch import cli
+    from ppr_tpu_torch.models.forward_push import ForwardPush
     from ppr_tpu_torch.models.neo4j_method import Neo4jMethod
-    from ppr_tpu_torch.ops import dense_power
+    from ppr_tpu_torch.ops import dense_power, row_gather
 
     reset_launches()
     rows, wall, _ = run_protocol("got", [
@@ -306,6 +548,16 @@ def protocol_path(dev) -> dict[str, int]:
     check(counts["k0"] == 1, f"K0 ran {counts['k0']} times, not once")
     check_protocol_rows("got", rows)
     check(len(rows[(2, "FORA_TOPK")]) == 5, "FORA_TOPK rows missing")
+
+    # Forward Push and BASE as their own run: the same command as the JAX
+    # rows they are held to (the query draws follow the algorithm set)
+    rows, wall, _ = run_protocol("got_push", [
+        "--db", "synth:107x3@7", "--sweep", "got", "--query", "50",
+        "--k", str(K), "--tests", "1,2,3",
+        "--algos", "FWDPUSH,BASE_WHOLE_GRAPH"])
+    print(f"[protocol:got] FWDPUSH,BASE_WHOLE_GRAPH, 50 queries, Tests 1-3: "
+          f"wall {wall:.1f} s")
+    check_protocol_rows("got", rows, jax_rows=JAX_ROWS["got"])
 
     rows, wall, work = run_protocol("k2max", [
         "--db", "synth:1000x16@11", "--sweep", "got", "--query", "50",
@@ -324,30 +576,40 @@ def protocol_path(dev) -> dict[str, int]:
     check(dense_power.pagerank_launches == k2_before,
           "the sparse graph launched K2")
     check_protocol_rows("grqc", rows)
+
+    k3_before = row_gather.segment_sum_launches
+    rows, wall, grqc_work = run_protocol("grqc_push", [
+        "--db", "synth:grqc", "--query", "50", "--k", str(K),
+        "--tests", "1,2", "--algos", "FWDPUSH,BASE_WHOLE_GRAPH"])
+    k3_run = row_gather.segment_sum_launches - k3_before
+    print(f"[protocol:grqc] FWDPUSH,BASE_WHOLE_GRAPH, 50 queries, Tests 1 "
+          f"and 2: wall {wall:.1f} s; K3 launches {k3_run}")
+    check(k3_run > 0, "the sparse push did not launch K3")
+    check_protocol_rows("grqc", rows, jax_rows=JAX_ROWS["grqc"])
+
     counts = read_launches()
 
-    # a preprocessing store read back against a direct K2 launch
+    # stores read back against direct computations: Forward Push on the
+    # sparse graph (through K3), the Neo4j method against K2
+    grqc = cli.load_dataset("synth:grqc", device=dev)
+    fwp = ForwardPush(grqc, ALPHA)
+    sources, rmax = np.array([0, 17, 2600, 5119]), 1e-7
+    direct = fwp.compute_whole_graph_device(sources, rmax).cpu().numpy()
+    err, nbytes, secs = read_back(fwp, grqc_work, rmax, sources, direct)
+    print(f"[protocol:grqc] Forward Push store rows {sources.tolist()} at "
+          f"rmax {rmax} vs a direct push: max abs err {err:.3e}; store of "
+          f"{grqc.n} rows {nbytes} bytes in {secs:.2f} s")
+    check(err <= PROTOCOL_ERR, f"Forward Push store rows differ by {err}")
+
     ds = cli.load_dataset("synth:1000x16@11", device=dev)
-    algo = Neo4jMethod(ds, ALPHA)
     sources = np.array([0, 1, 500, 999])
     onehot = torch.nn.functional.one_hot(
         torch.as_tensor(sources, device=dev), ds.graph.n_pad).float()
     x = dense_power.dense_pagerank_iterations(ds.graph, onehot, 1 - ALPHA,
                                               K2_ITERS)
     direct = (x / x.sum(-1, keepdim=True)).cpu().numpy()
-    err = 0.0
-    cwd = os.getcwd()
-    try:
-        os.chdir(work)     # the store's root is relative to the CWD
-        algo.preprocessing(-1.0, K2_ITERS, progress=False)
-        for i, s in enumerate(sources):
-            algo.read_preprocessed_ppr(int(s))
-            err = max(err, float(np.abs(algo.get_whole_graph_dense()
-                                        - direct[i]).max()))
-        nbytes = algo.get_prep_size()
-        algo.delete_prep_dir()
-    finally:
-        os.chdir(cwd)
+    err, nbytes, _ = read_back(Neo4jMethod(ds, ALPHA), work, K2_ITERS,
+                               sources, direct)
     print(f"[protocol:k2max] store rows {sources.tolist()} at iters "
           f"{K2_ITERS} vs a direct K2 launch, normalized: max abs err "
           f"{err:.3e}, store {nbytes} bytes")
@@ -363,6 +625,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    from ppr_tpu_torch.cli import load_dataset
     from ppr_tpu_torch.device import set_exact_f32_matmul
     from ppr_tpu_torch.graph.io import load_default, synthetic_powerlaw
     from ppr_tpu_torch.models.config import AlgoConf
@@ -379,19 +642,22 @@ def main() -> int:
 
     # --- 2. build: one nvcc per source, started together -----------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(cuda_build.load_library, ("dense_power", "probe")))
-    print(f"[build] dense_power.cu (K1, K2) and probe.cu (K0): "
-          f"{time.perf_counter() - t0:.2f} s")
-    for name in ("dense_power", "probe"):
+    sources_cu = ("dense_power", "probe", "row_gather")
+    with ThreadPoolExecutor(len(sources_cu)) as pool:
+        list(pool.map(cuda_build.load_library, sources_cu))
+    print(f"[build] dense_power.cu (K1, K2), probe.cu (K0) and "
+          f"row_gather.cu (K3, P1-P4): {time.perf_counter() - t0:.2f} s")
+    for name in sources_cu:
         secs, log = cuda_build.BUILD_INFO[name]
         print(f"[build] {name}.cu: nvcc {secs:.2f} s")
         for line in log.splitlines():
-            # the mangled entry names hold the kernel and its CPT template
-            entry = re.search(r"(ppr_\w+?_kernel)(?:ILi(\d)E)?", line)
+            # the mangled entry names hold the kernel and its template
+            # argument: CPT (dense_power) or the load type (row_gather)
+            entry = re.search(r"(ppr_\w+?_kernel)(?:ILi(\d)E|I6?(\w+?)E)?",
+                              line)
             if "entry function" in line and entry:
-                cpt = f"<{entry[2]}>" if entry[2] else ""
-                print(f"[build] ptxas: {entry[1]}{cpt}")
+                arg = entry[2] or entry[3]
+                print(f"[build] ptxas: {entry[1]}{f'<{arg}>' if arg else ''}")
             elif "registers" in line or "spill" in line:
                 print(f"[build] ptxas: {line.strip()}")
 
@@ -494,10 +760,29 @@ def main() -> int:
         if tag == "a":
             k2.update(ms=ms, plain_ms=plain_ms)
 
+    # --- 6. K3 and P1-P4 against their plain versions -------------------
+    # the benchmark's graph and service, built once here for K3's tail
+    # shape and used again by the serving path
+    t0 = time.perf_counter()
+    ds = synthetic_powerlaw(65536, 16, seed=42, dense_threshold=0,
+                            device=dev)
+    svc = PPRService.from_dataset(ds, alpha=ALPHA, eps=EPS, k=K,
+                                  hub_split=4096, seed=7)
+    algo = svc._topk_algo
+    hs = algo.hub_split
+    torch.cuda.synchronize()
+    print(f"[bench] graph n={ds.n} m={ds.graph.m} n_pad={ds.graph.n_pad}, "
+          f"hubs {hs.num_hubs} ({hs.hub_matrix.dtype}), tail edges "
+          f"{hs.m_tail}, set-up {time.perf_counter() - t0:.2f} s")
+    check(hs.hub_matrix.dtype == torch.bfloat16, "hub matrix is not bf16")
+    grqc = load_dataset("synth:grqc", device=dev).graph
+    k3 = k3_phase(dev, ds.graph, hs, grqc)
+    rg = gather_probes(dev, k3)
+
     # --- launch counts: the serving path from here on --------------------
     reset_launches()
 
-    # --- 6. the serving path: the oracle ----------------------------------
+    # --- 7. the serving path: the oracle ----------------------------------
     oracle_a = AlgoConf(ALPHA).set_conf_power_method(ds_a) \
         .compute_whole_graph_batch(sources_50)
     check(dense_power.launches > 0, "PowerMethod did not launch K1")
@@ -507,7 +792,7 @@ def main() -> int:
           f"{dense_power.launches}, row sums min "
           f"{oracle_a.sum(-1).min():.6f}")
 
-    # --- 6. FORA top-k on the GOT-scale graph --------------------------------
+    # --- 7. FORA top-k on the GOT-scale graph --------------------------------
     tol_a = EPS / ds_a.n
     svc_a = PPRService.from_dataset(ds_a, alpha=ALPHA, eps=EPS, k=K)
     vals, ids = svc_a._topk_algo.compute_topk_ids_batch(sources_50, K, EPS)
@@ -521,19 +806,7 @@ def main() -> int:
           f"raw {prec_a_raw:.4f}")
     check(prec_a >= 0.99, f"GOT-scale precision@10 {prec_a} < 0.99")
 
-    # --- 6. the serving path at the benchmark size ------------------------
-    t0 = time.perf_counter()
-    ds = synthetic_powerlaw(65536, 16, seed=42, dense_threshold=0,
-                            device=dev)
-    svc = PPRService.from_dataset(ds, alpha=ALPHA, eps=EPS, k=K,
-                                  hub_split=4096, seed=7)
-    algo = svc._topk_algo
-    hs = algo.hub_split
-    torch.cuda.synchronize()
-    print(f"[bench] graph n={ds.n} m={ds.graph.m} n_pad={ds.graph.n_pad}, "
-          f"hubs {hs.num_hubs} ({hs.hub_matrix.dtype}), tail edges "
-          f"{hs.m_tail}, set-up {time.perf_counter() - t0:.2f} s")
-    check(hs.hub_matrix.dtype == torch.bfloat16, "hub matrix is not bf16")
+    # --- 7. the serving path at the benchmark size ------------------------
     sources = np.random.default_rng(0).integers(0, ds.n, 2048)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -588,14 +861,18 @@ def main() -> int:
 
     # --- launch counts of the serving path ------------------------------
     serving = read_launches()
+    print(f"[bench] serving path launches: K1 {serving['k1']}, K3 "
+          f"{serving['k3']}, K0 {serving['k0']}")
     check(serving["k1"] > 0, "K1 was not launched on the serving path")
     check(serving["k0"] == 1, "K0 did not run once on the serving path")
+    check(serving["k3"] > 0, "K3 was not launched on the serving path")
 
-    # --- 7. where the time goes at the benchmark size ------------------
+    # --- 8. where the time goes at the benchmark size ------------------
     profile_batch(algo, sources)
 
-    # --- 8. the protocol path ----------------------------------------------
+    # --- 9. the protocol path ----------------------------------------------
     protocol = protocol_path(dev)
+    check(protocol["k3"] > 0, "K3 was not launched on the protocol path")
     launches = {k: serving[k] + protocol[k] for k in serving}
     print(f"[launches] serving path {serving}, protocol path {protocol}")
     source = "ppr_tpu_torch/csrc/dense_power.cu"
@@ -630,6 +907,31 @@ def main() -> int:
         "plain_ms": k0["plain_ms"],
         "shapes": [{"shape": list(probe.SHAPE), "ms": k0["ms"],
                     "plain_ms": k0["plain_ms"]}],
+    }, {
+        "name": "gather_segment_sum",
+        "route": "cuda",
+        "source": "ppr_tpu_torch/csrc/row_gather.cu",
+        "replaces": "scripts/bench_pallas_row_gather.py:41",
+        "replaces_mode": "gather_accum",
+        "launches": launches["k3"],
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "shapes": k3["shapes"],
+    }, {
+        "name": "row_gather",
+        "route": "cuda",
+        "source": "ppr_tpu_torch/csrc/row_gather.cu",
+        "replaces": "scripts/probe_mosaic_gather.py:30",
+        "also_replaces": ["scripts/probe_mosaic_gather.py:53",
+                          "scripts/probe_mosaic_gather.py:82",
+                          "scripts/bench_pallas_row_gather.py:41 (gather)"],
+        "launches": launches["gather"],
+        "path": "none: a microbenchmark, as the TPU probes were",
+        "max_abs_err": rg["max_abs_err"],
+        "ms": rg["ms"],
+        "plain_ms": rg["plain_ms"],
+        "shapes": rg["shapes"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

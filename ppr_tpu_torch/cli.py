@@ -10,12 +10,13 @@ card when the process sees one.
 Usage::
 
     python -m ppr_tpu_torch.cli --db synth:107x3@7 --sweep got \\
-        --algos NEO4J_METHOD,FORA_TOPK
+        --algos NEO4J_METHOD,FORA_TOPK,FWDPUSH,BASE_WHOLE_GRAPH
 
-Ported: the Neo4j method (Tests 1-3) and FORA top-k (Test 2). The other
-algorithms raise ``NotImplementedError`` when their section is reached, so
-pass ``--algos``. A Neo4j store directory, ``--mesh`` and
-``--fora-completion walks`` raise as well (ROADMAP.md, queue 1).
+Ported: the Neo4j method, Forward Push and BASE (Tests 1-3) and FORA top-k
+(Test 2). Monte-Carlo and FORA whole-graph raise ``NotImplementedError``
+when their section is reached, so pass ``--algos``. A Neo4j store
+directory, ``--mesh`` and ``--fora-completion walks`` raise as well
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations

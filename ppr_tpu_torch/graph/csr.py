@@ -8,8 +8,9 @@ package's pytree, so the two packages' arrays compare element for element:
   ``+ 1`` keeps the sentinel node ``n_pad - 1`` a padding node, never a real
   one, so padding edges (``edge_src = edge_dst = n_pad - 1``) are inert.
 * ``edge_*_bydst`` hold the edges sorted by destination; ``bydst_ptr`` is
-  their row pointer (``int64[n_pad + 1]``), built here once so every sweep
-  reduces destination segments in order, with no atomics.
+  their row pointer (``int64[n_pad + 1]``), and ``bysrc_ptr`` that of the
+  primary, source-sorted order. Both are built here once, so every forward
+  and reverse sweep reduces its segments in order, with no atomics.
 
 Construction runs on the host in numpy (the argsort path of the JAX
 package's ``build_graph``, which gives the same layout as its native C++
@@ -49,6 +50,7 @@ class Graph:
     edge_src_bydst: torch.Tensor  # int32[m_pad]
     edge_dst_bydst: torch.Tensor  # int32[m_pad] (non-decreasing)
     bydst_ptr: torch.Tensor       # int64[n_pad + 1]
+    bysrc_ptr: torch.Tensor       # int64[n_pad + 1], row pointer of edge_src
 
     # --- per-node arrays ---
     out_deg: torch.Tensor         # int32[n_pad]
@@ -111,10 +113,12 @@ def graph_from_numpy(arrays: dict, device=None) -> Graph:
               for k in _FLOAT_FIELDS})
     n_pad = int(t["out_deg"].shape[0])
     ptr = _segment_ptr(np.asarray(arrays["edge_dst_bydst"]), n_pad)
+    ptr_src = _segment_ptr(np.asarray(arrays["edge_src"]), n_pad)
     dense = arrays.get("dense_out")
     return Graph(
         **t,
         bydst_ptr=torch.as_tensor(ptr, device=device),
+        bysrc_ptr=torch.as_tensor(ptr_src, device=device),
         dense_out=(None if dense is None else torch.as_tensor(
             np.array(dense, np.float32), device=device)),
         n=int(arrays["n"]),

@@ -12,12 +12,13 @@ performance tests).
 * ``algo_perf_batch_test`` (:328-646): the three tests over the sweep
   arrays of ``SWEEPS``, the same arrays as the JAX package's.
 
-An algorithm the port does not have yet raises ``NotImplementedError`` when
-its section is reached (``--algos`` restricts a run to ported ones). A
-device mesh (ROADMAP.md, queue 1, item 18) and FORA's walk completion
-(item 11) raise as well. BASE's own protocol branches (it preprocesses in
-every test, keyed by k, with the threshold as its parameter) come with
-BASE (item 13).
+BASE preprocesses in every test: its sweep value is the threshold, its
+``param`` is -1, its store is keyed by ``(threshold, k or -1)``, its
+queries are store reads even in Test 3, and its store is not deleted
+after a test. An algorithm the port does not have yet (Monte-Carlo, FORA
+whole-graph) raises ``NotImplementedError`` when its section is reached
+(``--algos`` restricts a run to ported ones). A device mesh (ROADMAP.md,
+queue 1, item 18) and FORA's walk completion (item 11) raise as well.
 
 Two timing modes: ``batched=True`` times all Q queries as one device batch
 (per-query time = batch time / Q); ``batched=False`` times each query
@@ -241,20 +242,25 @@ class PerfHarness:
         oracle_rows = self._oracle_rows(sources)
         report = progress_printer(query_num, enabled=self.progress)
 
+        is_base = algo_type == AlgoType.BASE_WHOLE_GRAPH
         prep_ms = prep_bytes = None
-        if to_be_preprocessed:
+        if to_be_preprocessed or is_base:
+            # BASE's store is keyed by (threshold, k or -1), the others' by
+            # param; BASE has no resumable store, so it always warms
+            prep_key = (k if test_type == TestType.TOPK else -1) if is_base \
+                else param
             # warm the prep path untimed (as the query warm-up below); a
             # store that fully resumes does no device work, so no warm-up
-            if self.warmup and algo._prep_pending(param):
-                algo.warm_preprocessing(threshold, param)
+            if self.warmup and (is_base or algo._prep_pending(param)):
+                algo.warm_preprocessing(threshold, prep_key)
             t0 = time.perf_counter()
-            algo.preprocessing(threshold, param, progress=self.progress)
+            algo.preprocessing(threshold, prep_key, progress=self.progress)
             prep_ms = (time.perf_counter() - t0) * 1e3
             prep_bytes = algo.get_prep_size()
 
         def run_queries() -> tuple[np.ndarray, float]:
             """Returns (scores[B, n_pad], avg per-query ms)."""
-            if to_be_preprocessed:
+            if to_be_preprocessed and not is_base:
                 # preprocessed query path = store reads (Gen_Util.java:222-227)
                 t0 = time.perf_counter()
                 rows = []
@@ -310,22 +316,27 @@ class PerfHarness:
                 for i in range(query_num)
             ]))
 
-        self._write_row(result, k, threshold)
-        if to_be_preprocessed:
+        self._write_row(result, k, threshold, to_be_preprocessed)
+        if to_be_preprocessed and not is_base:
             algo.delete_prep_dir()  # Gen_Util.java:249-251
         return result
 
-    def _write_row(self, res: PerfResult, k, threshold):
-        """Row formats of Gen_Util.java:139-142/:179/:244-247 (BASE's
-        preprocessed top-k rows, :188-203, come with BASE)."""
+    def _write_row(self, res: PerfResult, k, threshold, to_be_preprocessed):
+        """Row formats of Gen_Util.java:139-142/:179/:188-203/:244-247."""
+        fields: list = [res.param]
         if res.test_type == TestType.TOPK:
-            fields = [res.param, k, f"{res.avg_ms:.3f}", res.avg_precision,
-                      res.avg_ndcg]
-        elif res.prep_ms is not None:
-            fields = [res.param, threshold, f"{res.prep_ms:.3f}",
-                      res.prep_bytes, res.avg_max_err]
+            if res.prep_ms is not None:
+                # BASE: [threshold, k, prep_ms, bytes, ms, precision, NDCG]
+                fields = [threshold, k, f"{res.prep_ms:.3f}", res.prep_bytes]
+            else:
+                fields = [res.param, k]
+            fields += [f"{res.avg_ms:.3f}", res.avg_precision, res.avg_ndcg]
         else:
-            fields = [res.param, f"{res.avg_ms:.3f}", res.avg_max_err]
+            if res.prep_ms is not None:
+                fields += [threshold, f"{res.prep_ms:.3f}", res.prep_bytes]
+            if not to_be_preprocessed:
+                fields += [f"{res.avg_ms:.3f}"]
+            fields += [res.avg_max_err]
         self.writer.row(*fields)
 
     # --- batch test (algo_perf_batch_test parity, Gen_Util.java:328-646) ----
@@ -404,6 +415,10 @@ class PerfHarness:
                     continue
                 self.writer.section(f"1.{i} {algo.value}")
                 run_section(algo, params, lambda p, a=algo: (
+                    # BASE: the sweep value is the threshold, param is -1
+                    self.algo_perf_test(a, query_num, -1, -1, p, False,
+                                        TestType.WHOLE_GRAPH)
+                    if a == AlgoType.BASE_WHOLE_GRAPH else
                     self.algo_perf_test(a, query_num, -1, p, -1.0, False,
                                         TestType.WHOLE_GRAPH)))
 
@@ -414,6 +429,10 @@ class PerfHarness:
                     continue
                 self.writer.section(f"2.{i} {algo.value}")
                 run_section(algo, params, lambda p, a=algo: (
+                    # BASE: the sweep value is the threshold, param is -1
+                    self.algo_perf_test(a, query_num, k, -1, p, False,
+                                        TestType.TOPK)
+                    if a == AlgoType.BASE_WHOLE_GRAPH else
                     self.algo_perf_test(a, query_num, k, p, -1.0, False,
                                         TestType.TOPK)))
 
@@ -434,6 +453,10 @@ class PerfHarness:
                     continue
                 self.writer.section(f"3.{i} {algo.value}")
                 run_section(algo, params, lambda p, a=algo: (
+                    # BASE: the sweep value is the threshold, param is -1
+                    self.algo_perf_test(a, query_num, -1, -1, p, True,
+                                        TestType.WHOLE_GRAPH)
+                    if a == AlgoType.BASE_WHOLE_GRAPH else
                     self.algo_perf_test(a, query_num, -1, p, -1.0, True,
                                         TestType.WHOLE_GRAPH)))
         return results

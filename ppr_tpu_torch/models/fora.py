@@ -161,6 +161,10 @@ class ForaTopk(PPRAlgorithm):
         self.last_iters: int | None = None
 
     def _num_chunks(self, batch: int) -> int:
+        """Edge slices that keep the CPU's per-edge gather intermediate
+        ``[m, B]`` within budget; 1 on the card, where K3 writes none."""
+        if self.graph.device.type != "cpu":
+            return 1
         if self.hub_split is not None:
             m_eff = int(self.hub_split.tail_src.shape[0])
             budget = self.hybrid_tail_budget

@@ -6,8 +6,9 @@ one dense product instead of a segmented sum over their edges:
     y[hub_h] = sum_v a[v]/d_v * (#edges v->hub_h)  ==  (a * inv_deg) @ M[:, h]
 
 and the remaining (tail) edges go through the sorted gather + segmented sum
-of :mod:`ppr_tpu_torch.ops.spmv`. Tail edges never end at a hub, so the
-tail result is zero on hub rows and the hub rows are a plain add.
+of :func:`ppr_tpu_torch.ops.spmv.gather_segment_sum` (K3 on the card). Tail
+edges never end at a hub, so the tail result is zero on hub rows and the hub
+rows are a plain add.
 
 bf16 hubs: the product runs on bf16 operands with an f32 result, as the
 JAX package's ``preferred_element_type=f32`` does. On the card that is

@@ -83,7 +83,7 @@ def ensure(device: torch.device) -> None:
 
 def reset() -> None:
     """Zero the launch count and forget the probed cards, so that the next
-    dense-kernel launch probes again. It exists for launch accounting: a
+    hand-kernel launch probes again. It exists for launch accounting: a
     run that counts its own launches (``chip_smoke.py``, per path) sees the
     probe that path depends on. The runtime never needs a second probe."""
     global launches

@@ -7,7 +7,10 @@ port's dependencies:
 
 Tolerances: K1, K2 and the hub product sum in another order than the plain
 versions (2e-5 after 100 or 300 rounds, the JAX package's kernel-vs-XLA
-bound; 1e-5 for one product); K0 is exact."""
+bound; 1e-5 for one product); K3's segment sums run in edge order like the
+plain ``segment_reduce``, in f32 (rtol 1e-5); K0 and the row gather are
+exact. Forward Push and BASE rows on the card agree with the CPU's within
+1e-6, and with the same sweep count."""
 
 import numpy as np
 import pytest
@@ -15,12 +18,14 @@ import torch
 
 from ppr_tpu_torch.graph.io import load_default, synthetic_powerlaw
 from ppr_tpu_torch.harness import PerfHarness, TestType
+from ppr_tpu_torch.models.base_allpair import BaseAllPair
 from ppr_tpu_torch.models.config import AlgoType
-from ppr_tpu_torch.models.fora import annealed_topk_propagate
+from ppr_tpu_torch.models.fora import ForaTopk, annealed_topk_propagate
+from ppr_tpu_torch.models.forward_push import ForwardPush
 from ppr_tpu_torch.models.neo4j_method import (Neo4jMethod,
                                                personalized_pagerank_batch)
 from ppr_tpu_torch.models.power_method import PowerMethod, power_method_batch
-from ppr_tpu_torch.ops import dense_power, probe
+from ppr_tpu_torch.ops import dense_power, probe, row_gather, spmv
 from ppr_tpu_torch.ops.hub_split import build_hub_split, push_out_hybrid_t
 from ppr_tpu_torch.ops.push import forward_push_init
 
@@ -199,3 +204,158 @@ def test_harness_row_matches_cpu(cuda, tmp_path, monkeypatch, test_type,
         assert abs(gpu.avg_max_err - cpu.avg_max_err) <= 1e-6
         assert gpu.avg_max_err < 1e-6
     assert (gpu.prep_bytes or 0) > 0 if prep else gpu.prep_bytes is None
+
+
+def k3_operands(cuda, b, *, misalign=False):
+    """The destination-sorted edges of a 2048-node graph and a ``[n_pad,
+    b]`` table on the card; ``misalign`` offsets the table by one float,
+    which sends a width that is a multiple of 4 down the scalar path."""
+    g = synthetic_powerlaw(2048, 8, seed=3, dense_threshold=0,
+                           device=cuda).graph
+    values = torch.rand((g.n_pad, b), device=cuda)
+    if misalign:
+        flat = torch.empty(g.n_pad * b + 1, device=cuda)
+        values = flat[1:].view(g.n_pad, b).copy_(values)
+    return g, values
+
+
+@pytest.mark.parametrize("order", ["bydst", "bysrc"])
+@pytest.mark.parametrize("misalign", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("b", [1, 3, 50, 512, 2048])
+def test_k3_matches_plain(cuda, b, misalign, order):
+    """K3 on the forward push's destination-sorted edges and on the
+    backward push's source-sorted ones (BASE pushes 512 targets a batch)."""
+    g, table = k3_operands(cuda, b, misalign=misalign)
+    src, ptr = ((g.edge_src_bydst, g.bydst_ptr) if order == "bydst"
+                else (g.edge_dst, g.bysrc_ptr))
+    before = row_gather.segment_sum_launches
+    got = row_gather.gather_segment_sum(table, src, ptr)
+    ref = row_gather.gather_segment_sum_ref(table, src, ptr)
+    torch.cuda.synchronize()
+    assert row_gather.segment_sum_launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+    # the same bits every run
+    assert torch.equal(got, row_gather.gather_segment_sum(table, src, ptr))
+
+
+@pytest.mark.parametrize("b", [1, 3, 50, 2048])
+def test_row_gather_matches_plain(cuda, b):
+    table = torch.rand((4096, b), device=cuda)
+    idx = (torch.arange(8192, device=cuda) * 7919 % 4096).to(torch.int32)
+    before = row_gather.gather_launches
+    out = row_gather.row_gather(table, idx)
+    torch.cuda.synchronize()
+    assert row_gather.gather_launches == before + 1
+    assert torch.equal(out, row_gather.row_gather_ref(table, idx))
+
+
+def test_k3_p4_accum_and_empty_segments(cuda):
+    """P4's unsorted destinations after a stable sort; 7 of 9 segments
+    are empty in the second case."""
+    i = torch.arange(8192, device=cuda)
+    src = (i * 7919 % 4096).to(torch.int32)
+    dst = i * 104729 % 512
+    order = torch.sort(dst, stable=True).indices
+    ptr = torch.searchsorted(dst[order], torch.arange(513, device=cuda))
+    table = torch.rand((4096, 512), device=cuda)
+    out = row_gather.gather_segment_sum(table, src[order].contiguous(), ptr)
+    want = torch.zeros((512, 512), device=cuda).index_add_(
+        0, dst, table.index_select(0, src))
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    ptr = torch.tensor([0, 0, 0, 2, 2, 2, 2, 5, 5, 5], device=cuda)
+    out = row_gather.gather_segment_sum(table, src[:5].contiguous(), ptr)
+    torch.cuda.synchronize()
+    assert not out[[0, 1, 3, 4, 5, 7, 8]].any()
+    torch.testing.assert_close(out[2], table[src[:2].long()].sum(0))
+
+
+def test_k3_and_row_gather_reject_bad_operands(cuda):
+    table = torch.rand((16, 8), device=cuda)
+    src = torch.zeros(4, dtype=torch.int32, device=cuda)
+    ptr = torch.tensor([0, 2, 4], device=cuda)
+    for bad_table in (table.double(), table.T, table[:, 0], table.half()):
+        with pytest.raises(ValueError):
+            row_gather.gather_segment_sum(bad_table, src, ptr)
+        with pytest.raises(ValueError):
+            row_gather.row_gather(bad_table, src)
+    for bad_src in (src.long(), src.cpu(), src.reshape(2, 2)):
+        with pytest.raises(ValueError):
+            row_gather.gather_segment_sum(table, bad_src, ptr)
+        with pytest.raises(ValueError):
+            row_gather.row_gather(table, bad_src)
+    for bad_ptr in (ptr.int(), ptr.cpu(), ptr[:0]):
+        with pytest.raises(ValueError):
+            row_gather.gather_segment_sum(table, src, bad_ptr)
+
+
+def test_fora_does_not_chunk_on_the_card(cuda):
+    """The chunk count bounds the CPU's per-edge intermediate; K3 writes
+    none, so FORA on the card pushes in one piece whatever the budget."""
+    ds = synthetic_powerlaw(2048, 8, seed=3, dense_threshold=0, device=cuda)
+    algo = ForaTopk(ds, ALPHA, 10)
+    algo.spmv_intermediate_budget = 1024
+    assert algo._num_chunks(2048) == 1
+
+
+def test_sparse_operators_launch_k3(cuda):
+    """Every sparse push reaches K3 on the card and matches the CPU."""
+    graphs = [synthetic_powerlaw(2048, 8, seed=3, dense_threshold=0,
+                                 device=dev).graph for dev in ("cpu", cuda)]
+    a = np.random.default_rng(2).random((16, graphs[0].n_pad),
+                                        dtype=np.float32)
+    a[:, graphs[0].n:] = 0
+    outs = []
+    before = row_gather.segment_sum_launches
+    for g in graphs:
+        x = torch.from_numpy(a).to(g.device)
+        x_t = x.T.contiguous()
+        hs = build_hub_split(g, 128)
+        outs.append([op.cpu() for op in (
+            spmv.push_out(g, x), spmv.push_out_t(g, x_t),
+            spmv.push_out_chunked_t(g, x_t, num_chunks=3),
+            push_out_hybrid_t(g, hs, x_t, num_chunks=2),
+            spmv.pull_out_norm(g, x), spmv.pull_out_norm(g, x[0]))])
+    torch.cuda.synchronize()
+    assert row_gather.segment_sum_launches == before + 6
+    # the CPU's chunked sums and the hub product add in another order
+    # (values up to ~10 at the hubs)
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dense_threshold", [4096, 0], ids=["dense", "sparse"])
+def test_forward_push_matches_cpu(cuda, dense_threshold):
+    rows, sweeps, rsums = [], [], []
+    sources = np.arange(0, 100, 7)
+    before = row_gather.segment_sum_launches
+    for dev in ("cpu", cuda):
+        algo = ForwardPush(load_default(dense_threshold=dense_threshold,
+                                        device=dev), ALPHA)
+        rows.append(algo.compute_whole_graph_batch(sources, 1e-7))
+        sweeps.append(algo.last_sweeps)
+        rsums.append(algo.residue_sum())
+    assert sweeps[0] == sweeps[1] > 0
+    np.testing.assert_allclose(rows[1], rows[0], atol=1e-6)
+    np.testing.assert_allclose(rsums[1], rsums[0], atol=1e-6)
+    launched = row_gather.segment_sum_launches - before
+    assert launched >= sweeps[1] if dense_threshold == 0 else launched == 0
+
+
+@pytest.mark.parametrize("dense_threshold", [4096, 0], ids=["dense", "sparse"])
+def test_base_rows_match_cpu(cuda, tmp_path, monkeypatch, dense_threshold):
+    rows = []
+    for dev in ("cpu", cuda):
+        work = tmp_path / str(dev)
+        work.mkdir()
+        monkeypatch.chdir(work)
+        base = BaseAllPair(load_default(dense_threshold=dense_threshold,
+                                        device=dev), ALPHA, target_batch=64)
+        base.preprocessing(5e-5, 10, progress=False)
+        rows.append([base._store.read_row_ordered(s) for s in range(107)])
+    # the same kept sets and values; ties may order differently, since
+    # the dense product sums in another order on the card
+    for (gids, gvals), (cids, cvals) in zip(rows[1], rows[0]):
+        assert set(gids.tolist()) == set(cids.tolist())
+        g_row, c_row = np.zeros(128), np.zeros(128)
+        g_row[gids], c_row[cids] = gvals, cvals
+        np.testing.assert_allclose(g_row, c_row, atol=1e-6)

@@ -39,6 +39,11 @@ def assert_same_graph(jg, tg):
     assert ptr[0] == 0 and ptr[-1] == tg.m_pad
     counts = np.bincount(dst, minlength=tg.n_pad)
     np.testing.assert_array_equal(np.diff(ptr), counts)
+    # and the by-source pointer each source's edges in the primary order
+    src_ptr = tg.bysrc_ptr.numpy()
+    assert src_ptr[0] == 0 and src_ptr[-1] == tg.m_pad
+    np.testing.assert_array_equal(
+        np.diff(src_ptr), np.bincount(tg.edge_src.numpy(), minlength=tg.n_pad))
 
 
 def _edges(case):

@@ -2,17 +2,18 @@
 
 Both harnesses run on the same graph (carried across with
 ``graph_from_numpy``) with the same seed, so they draw the same query
-nodes. Tolerances: max-abs-error fields within 1e-6 (the Neo4j method's
-own, tests/test_torch_neo4j.py); precision and NDCG within 1e-9, since
-the same top-k sets give the same sums; preprocessing bytes within 5%,
-since the npz shards are compressed and the values differ in their last
-bits. Time fields are dropped.
+nodes. Tolerances: max-abs-error fields within 1e-6 (the algorithms' own,
+tests/test_torch_neo4j.py and tests/test_torch_base.py); precision and
+NDCG within 1e-9, since the same top-k sets give the same sums;
+preprocessing bytes within 1%, since the npz shards are compressed and the
+values differ in their last bits. Time fields are dropped.
 
 The JAX engine's FORA top-k is pinned to ``push="none"``, the port's only
 mode (tests/test_torch_fora.py says why)."""
 
 import dataclasses
 import os
+import re
 
 import numpy as np
 import pytest
@@ -50,8 +51,8 @@ def datasets():
     )}
 
 
-def tiny_spec(algo_type):
-    return {test: {algo_type: [5, 40]}
+def tiny_spec(algo_type, params=(5, 40)):
+    return {test: {algo_type: list(params)}
             for test in ("whole_graph", "topk", "prep")}
 
 
@@ -62,25 +63,35 @@ def pin_jax_fora(monkeypatch):
             dataset, self.alpha, k=k, seed=self.seed, push="none"))
 
 
-# per test: the kinds of the fields left once the time field is dropped
-_FIELDS = {"1": ("exact", "err"), "2": ("exact", "exact", "rank", "rank"),
-           "3": ("exact", "exact", "bytes", "err")}
-_TIME_FIELD = {"1": 1, "2": 2, "3": 2}
+# per (test, BASE section?): the kind of each field of a row, as
+# Gen_Util.java writes them; "time" fields are dropped
+_FIELDS = {
+    ("1", False): ("exact", "time", "err"),
+    ("2", False): ("exact", "exact", "time", "rank", "rank"),
+    ("3", False): ("exact", "exact", "time", "bytes", "err"),
+    ("1", True): ("exact", "exact", "time", "bytes", "time", "err"),
+    ("2", True): ("exact", "exact", "time", "bytes", "time", "rank", "rank"),
+    ("3", True): ("exact", "exact", "time", "bytes", "err"),
+}
 
 
 def report_rows(path):
-    """The result file's lines below its timestamp, each data row split
-    into fields without its time field, with the test it belongs to."""
-    out, test = [], None
+    """The result file's lines below its timestamp; each data row as its
+    (kind, field) pairs without the time fields."""
+    out, test, base = [], None, False
     for line in path.read_text().splitlines()[1:]:
         if line.startswith("Test "):
             test = line.split()[1].rstrip(".")
+        elif re.fullmatch(r"\d\.\d+ \w+", line):
+            base = line.endswith(" BASE_WHOLE_GRAPH")
         if "," not in line:
             out.append((None, line))
             continue
+        kinds = _FIELDS[(test, base)]
         fields = line.split(",")
-        del fields[_TIME_FIELD[test]]
-        out.append((test, fields))
+        assert len(fields) == len(kinds), line
+        out.append((test, [(kind, f) for kind, f in zip(kinds, fields)
+                           if kind != "time"]))
     return out
 
 
@@ -91,8 +102,8 @@ def assert_same_report(port_path, jax_path):
         if test is None:
             assert got == want
             continue
-        assert len(got) == len(want) == len(_FIELDS[test])
-        for kind, a, b in zip(_FIELDS[test], got, want):
+        assert [k for k, _ in got] == [k for k, _ in want]
+        for (kind, a), (_, b) in zip(got, want):
             if kind == "exact":
                 assert a == b
             elif kind == "err":
@@ -100,14 +111,16 @@ def assert_same_report(port_path, jax_path):
             elif kind == "rank":
                 assert abs(float(a) - float(b)) <= 1e-9
             else:
-                assert int(a) > 0 and abs(int(a) - int(b)) <= 0.05 * int(b)
+                assert int(a) > 0 and abs(int(a) - int(b)) <= 0.01 * int(b)
 
 
-@pytest.mark.parametrize("kind", ["dense", "sparse"])
-def test_neo4j_protocol_matches_jax(datasets, tmp_path, monkeypatch, kind):
+def run_protocol_both(datasets, tmp_path, monkeypatch, kind, algo, params):
+    """Tests 1-3 over ``params`` for ``algo`` through both harnesses;
+    returns their results, after checking rows and result files alike."""
     jds, tds = datasets[kind]
-    monkeypatch.setitem(jh.SWEEPS, "tiny", tiny_spec(jh.AlgoType.NEO4J_METHOD))
-    monkeypatch.setitem(th.SWEEPS, "tiny", tiny_spec(AlgoType.NEO4J_METHOD))
+    monkeypatch.setitem(jh.SWEEPS, "tiny", tiny_spec(jh.AlgoType(algo),
+                                                     params))
+    monkeypatch.setitem(th.SWEEPS, "tiny", tiny_spec(AlgoType(algo), params))
     results = {}
     for pkg, mod, ds in (("jax", jh, jds), ("port", th, tds)):
         out = tmp_path / pkg
@@ -116,9 +129,7 @@ def test_neo4j_protocol_matches_jax(datasets, tmp_path, monkeypatch, kind):
         h = mod.PerfHarness(ds, seed=0, out_dir=str(out), progress=False)
         results[pkg] = h.algo_perf_batch_test(Q, K, sweep="tiny",
                                               tests=(1, 2, 3))
-        # each preprocessing test deletes its store
-        assert not os.listdir(out / "Neo4j_Method_ppr_results" / ds.name)
-    assert len(results["port"]) == len(results["jax"]) == 6
+    assert len(results["port"]) == len(results["jax"]) == 3 * len(params)
     for got, want in zip(results["port"], results["jax"]):
         assert (got.algo, got.test_type, got.param) == \
             (want.algo, want.test_type, want.param)
@@ -131,6 +142,17 @@ def test_neo4j_protocol_matches_jax(datasets, tmp_path, monkeypatch, kind):
         assert (got.prep_bytes is None) == (want.prep_bytes is None)
     name = f"{jds.name}_AlgoPerfResults.txt"
     assert_same_report(tmp_path / "port" / name, tmp_path / "jax" / name)
+    return results
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+def test_neo4j_protocol_matches_jax(datasets, tmp_path, monkeypatch, kind):
+    results = run_protocol_both(datasets, tmp_path, monkeypatch, kind,
+                                "NEO4J_METHOD", (5, 40))
+    # each preprocessing test deletes its store
+    for pkg in ("jax", "port"):
+        assert not os.listdir(tmp_path / pkg / "Neo4j_Method_ppr_results"
+                              / datasets[kind][1].name)
     # iters 40 is exact to ~1e-5 on these graphs; 5 is not
     errs = [r.avg_max_err for r in results["port"] if r.avg_max_err]
     assert errs[1] < 1e-4 < errs[0]
@@ -230,7 +252,7 @@ def test_batch_test_skips_undefined_prep(small, tmp_path, monkeypatch):
 @pytest.mark.parametrize("tests,algos,section", [
     ((2,), {"MC"}, "2.3 MC"),
     ((1,), None, "1.1 FORA_WHOLE_GRAPH"),
-    ((3,), {"FWDPUSH", "NEO4J_METHOD"}, "3.2 FWDPUSH"),
+    ((3,), {"MC", "NEO4J_METHOD"}, "3.4 MC"),
 ])
 def test_unported_algorithm_raises_at_its_section(small, tmp_path, tests,
                                                   algos, section):
@@ -317,6 +339,30 @@ def test_cli_main(tmp_path, monkeypatch, capsys):
     assert "on cpu" in capsys.readouterr().out
 
 
+def test_cli_main_push_algorithms(tmp_path, monkeypatch):
+    """``--algos FWDPUSH,BASE_WHOLE_GRAPH`` reaches their sections of all
+    three tests, five params each, and ``--budget-s`` cuts a section with a
+    note row."""
+    monkeypatch.chdir(tmp_path)
+    assert tcli.main(["--db", "synth:107x3@7", "--sweep", "got", "--query",
+                      "3", "--k", "5", "--tests", "1,2,3", "--algos",
+                      "FWDPUSH,BASE_WHOLE_GRAPH", "--out-dir", "out"]) == 0
+    text = (tmp_path / "out" / "synth_107_7_AlgoPerfResults.txt").read_text()
+    for section in ("1.2 FWDPUSH", "1.5 BASE_WHOLE_GRAPH",
+                    "2.1 BASE_WHOLE_GRAPH", "2.4 FWDPUSH", "3.2 FWDPUSH",
+                    "3.5 BASE_WHOLE_GRAPH"):
+        assert section in text
+    rows = [ln for ln in text.splitlines() if "," in ln]
+    assert len(rows) == 30
+    assert "-1,0.001," in text and "0.001,5," in text
+    assert tcli.main(["--db", "synth:107x3@7", "--sweep", "got", "--query",
+                      "2", "--tests", "1", "--algos", "BASE_WHOLE_GRAPH",
+                      "--budget-s", "0", "--out-dir", "cut"]) == 0
+    assert "# remaining params skipped (budget 0s exceeded): " \
+        "[0.0005, 5e-05, 1e-06, 5e-07]" in \
+        (tmp_path / "cut" / "synth_107_7_AlgoPerfResults.txt").read_text()
+
+
 def test_cli_unported_flags_raise(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="item 18"):
@@ -337,3 +383,33 @@ def test_phase_timer():
             torch.ones(1000).sum()
     assert timer.counts["sum"] == 3 and timer.ms("sum") > 0
     assert timer.report().startswith("sum: ")
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+def test_fwdpush_protocol_matches_jax(datasets, tmp_path, monkeypatch, kind):
+    results = run_protocol_both(datasets, tmp_path, monkeypatch, kind,
+                                "FWDPUSH", (1e-4, 1e-7))
+    for pkg in ("jax", "port"):
+        assert not os.listdir(tmp_path / pkg / "FWP_ppr_results"
+                              / datasets[kind][1].name)
+    # whole-graph and preprocessing errors shrink with rmax
+    errs = [r.avg_max_err for r in results["port"] if r.avg_max_err]
+    assert errs[1] < errs[0] and errs[3] < errs[2]
+    assert min(r.avg_precision for r in results["port"]
+               if r.avg_precision is not None) > 0.9
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+def test_base_protocol_matches_jax(datasets, tmp_path, monkeypatch, kind):
+    results = run_protocol_both(datasets, tmp_path, monkeypatch, kind,
+                                "BASE_WHOLE_GRAPH", (1e-3, 1e-5))
+    # BASE preprocesses in every test, keyed by (threshold, k or -1), and
+    # keeps its stores
+    for pkg in ("jax", "port"):
+        assert sorted(os.listdir(tmp_path / pkg / "BASE_ppr_results"
+                                 / datasets[kind][1].name)) == \
+            ["0.001_-1", f"0.001_{K}", "1e-05_-1", f"1e-05_{K}"]
+    port = results["port"]
+    assert all(r.param == -1 and r.prep_bytes > 0 for r in port)
+    assert [r.test_type for r in port] == [th.TestType.WHOLE_GRAPH] * 2 + \
+        [th.TestType.TOPK] * 2 + [th.TestType.WHOLE_GRAPH] * 2

@@ -145,7 +145,10 @@ def test_new_algo_obj(datasets):
     algo = conf.new_algo_obj(AlgoType.NEO4J_METHOD, tds)
     assert isinstance(algo, tneo.Neo4jMethod) and algo.alpha == ALPHA
     assert algo.prep_dirname == "Neo4j_Method_ppr_results"
-    for unported in (AlgoType.MC, AlgoType.FWDPUSH,
-                     AlgoType.FORA_WHOLE_GRAPH, AlgoType.BASE_WHOLE_GRAPH):
+    for ported, name in ((AlgoType.FWDPUSH, "ForwardPush"),
+                         (AlgoType.BASE_WHOLE_GRAPH, "BaseAllPair")):
+        other = conf.new_algo_obj(ported, tds)
+        assert type(other).__name__ == name and other.alpha == ALPHA
+    for unported in (AlgoType.MC, AlgoType.FORA_WHOLE_GRAPH):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             conf.new_algo_obj(unported, tds)

@@ -23,10 +23,14 @@ MODULES = [
     "ppr_tpu_torch.ops.dense_power",
     "ppr_tpu_torch.ops.probe",
     "ppr_tpu_torch.ops.compact",
+    "ppr_tpu_torch.ops.row_gather",
     "ppr_tpu_torch.models.base",
     "ppr_tpu_torch.models.power_method",
     "ppr_tpu_torch.models.fora",
     "ppr_tpu_torch.models.neo4j_method",
+    "ppr_tpu_torch.models.forward_push",
+    "ppr_tpu_torch.models.backward_search",
+    "ppr_tpu_torch.models.base_allpair",
     "ppr_tpu_torch.models.config",
     "ppr_tpu_torch.utils.metrics",
     "ppr_tpu_torch.utils.store",
