@@ -15,11 +15,17 @@ script exits non-zero:
    row-gather probes P1-P4), one nvcc each, started together; ptxas lines;
 3. K0, the toolchain probe, against ``2 * x`` bit for bit;
 4. K1 against its plain PyTorch version and against the sparse power
-   method, on the 107-node GOT-scale graph (n_pad 128, B 50) and on a
-   1000-node graph at the kernel's limit (n_pad 1024, B 1000), with median
-   times of 10 CUDA-event-timed runs;
-5. K2 against its plain version and, normalized, against the sparse
-   Neo4j iteration, at the same two shapes, 300 rounds;
+   method, at the paths' shapes: the 107-node GOT-scale graph (n_pad 128,
+   B 50; ``[k1:a]``) and a 1000-node graph at the kernels' limit (n_pad
+   1024) at B 50, 128 and 1000 (``[k1:b50]``, ``[k1:b128]``,
+   ``[k1:b1000]``): the largest error, bit-equality of two launches, and
+   median times of 10 CUDA-event-timed runs of the kernel, of the plain
+   version and of ``library_ms``, the cuBLAS yardstick (``iters`` chained
+   FP32 ``torch.matmul`` products, TF32 off, replayed as one CUDA graph),
+   beside ``bound_ms``, the FP32 bound (2 B n^2 FLOP a round at 67
+   TFLOP/s), and the share;
+5. K2 the same way (``[k2:*]``; normalized, against the sparse Neo4j
+   iteration; 300 rounds);
 6. K3 (``gather_segment_sum``) against its plain version
    (``index_select`` + ``segment_reduce``) at the benchmark's tail (B
    2048) and at the sparse ca-GrQc-scale graph's by-destination (forward
@@ -56,8 +62,9 @@ and again before and after the protocol path (9); a reset also forgets
 the probe, so each path runs K0 once before its first hand kernel. The
 last three lines are the kernels' JSON record (``launches`` summed over
 the two paths; ``row_gather`` is a microbenchmark, as P1-P4 were on the
-TPU, so no path launches it; ``ms`` and ``plain_ms`` at one shape each,
-and ``shapes`` with every shape's times), the card line, and
+TPU, so no path launches it; ``ms``, ``plain_ms``, ``library_ms``,
+``bound_ms`` and ``bound_by`` at one shape each, and ``shapes`` with
+every shape's), the card line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script prints
 no result and exits 1.
 """
@@ -247,18 +254,25 @@ def k3_phase(dev, bench_g, hs, grqc_g) -> dict:
         ms = cuda_ms(lambda: rgm.gather_segment_sum(table, src, ptr))
         plain_ms = cuda_ms(lambda: rgm.gather_segment_sum_ref(table, src, ptr))
         edges = int(ptr[-1])
-        print(f"[k3] {label}: {ptr.shape[0] - 1} segments, {edges} edges, "
+        segments = ptr.shape[0] - 1
+        rows = int(torch.unique(src[:edges]).numel())
+        bound_ms, bound_by = bound(float(edges) * b, 4.0 * (
+            (rows + segments) * b + edges) + 8.0 * (segments + 1))
+        print(f"[k3] {label}: {segments} segments, {edges} edges, "
               f"B={b}: max abs err {err:.3e} (relative to the row "
               f"{rel:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"(median of 10), {plain_ms / ms:.2f}x")
+              f"(median of 10), {plain_ms / ms:.2f}x; bound_ms "
+              f"{bound_ms:.4f} ({bound_by}: {rows} distinct rows read)")
         check(rel <= K3_TOL, f"K3 {label}: relative error {rel} > {K3_TOL}")
         check(bool(torch.isfinite(got).all()), f"K3 {label}: not finite")
         out["max_abs_err"] = max(out["max_abs_err"], err)
-        out["shapes"].append({"case": label, "segments": ptr.shape[0] - 1,
+        out["shapes"].append({"case": label, "segments": segments,
                               "edges": edges, "cols": b, "ms": ms,
-                              "plain_ms": plain_ms})
+                              "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by})
         del table, got, want
-    out.update(ms=out["shapes"][0]["ms"], plain_ms=out["shapes"][0]["plain_ms"])
+    out.update({key: out["shapes"][0][key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by")})
     return out
 
 
@@ -292,6 +306,8 @@ def gather_probes(dev, k3: dict) -> dict:
             ms = cuda_ms(lambda: rgm.row_gather(table, src))
             plain_ms = cuda_ms(lambda: rgm.row_gather_ref(table, src))
             err, plain = 0.0, "index_select"
+            rows = int(torch.unique(src).numel())
+            bound_ms, bound_by = bound(0.0, 4.0 * (rows * b + w + w * b))
         else:
             dst = i * 104729 % 512
             order = torch.sort(dst, stable=True).indices
@@ -311,21 +327,172 @@ def gather_probes(dev, k3: dict) -> dict:
             ms = cuda_ms(lambda: rgm.gather_segment_sum(table, src_s, ptr))
             plain_ms = cuda_ms(plain_accum)
             plain = "index_select + index_add_"
+            rows = int(torch.unique(src).numel())
+            bound_ms, bound_by = bound(float(w) * b, 4.0 * (
+                rows * b + w + 512 * b) + 8.0 * 513)
         print(f"[p1-p4] {label} {mode} table [{n}, {b}], {w} rows: kernel "
               f"{ns_per_row(ms, w):.2f} ns/row ({ms:.4f} ms), {plain} "
               f"{ns_per_row(plain_ms, w):.2f} ns/row ({plain_ms:.4f} ms); "
-              f"max abs err {err:.3e}")
+              f"max abs err {err:.3e}; bound_ms {bound_ms:.4f} ({bound_by})")
         shape = {"case": f"{label} {mode}", "table": [n, b], "rows": w,
-                 "ms": ms, "plain_ms": plain_ms,
-                 "ns_per_row": ns_per_row(ms, w),
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "ns_per_row": ns_per_row(ms, w),
                  "plain_ns_per_row": ns_per_row(plain_ms, w)}
         if mode == "gather":
             out["shapes"].append(shape)
         else:
             k3["shapes"].append(shape)
             k3["max_abs_err"] = max(k3["max_abs_err"], err)
-    out.update(ms=out["shapes"][0]["ms"], plain_ms=out["shapes"][0]["plain_ms"])
+    out.update({key: out["shapes"][0][key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by")})
     return out
+
+
+# Published H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): FP32
+# outside the tensor cores and HBM3
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def bound(flop: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take for ``flop`` FP32 operations and
+    ``nbytes`` moved (each input read once, each output written once), in
+    ms, and which of the two sets it."""
+    f_ms, b_ms = flop / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (f_ms, "operations") if f_ms >= b_ms else (b_ms, "bytes")
+
+
+def library_loop_ms(x0, w, iters: int) -> float:
+    """The library yardstick of K1 / K2: ``iters`` chained cuBLAS FP32
+    products ``x <- x @ W`` (TF32 off) into two alternating buffers,
+    captured in one CUDA graph and timed as one replay, so the host's
+    launch latency is not counted."""
+    import torch
+
+    from ppr_tpu_torch.device import set_exact_f32_matmul
+
+    set_exact_f32_matmul()
+    bufs = [x0.clone(), torch.empty_like(x0)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # cuBLAS's handle and workspace
+        torch.matmul(bufs[0], w, out=bufs[1])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            torch.matmul(bufs[i % 2], w, out=bufs[1 - i % 2])
+    ms = cuda_ms(graph.replay)
+    del graph
+    return ms
+
+
+def dense_bound(b: int, n: int, iters: int) -> tuple[float, str]:
+    """K1 / K2: 2 B n^2 FLOP a round; W, the one-hot and the result."""
+    return bound(2.0 * b * n * n * iters, 4.0 * (n * n + 2 * b * n + n))
+
+
+def dense_phase(dev, ds_a, ds_a_sparse, sources_50):
+    """K1 and K2 against their plain versions and the sparse paths at the
+    paths' shapes: n_pad 128 B 50 (``a``: the GOT-scale oracle and Neo4j
+    Test 1) and n_pad 1024 at B 50 (Test 1), 128 (a preprocessing batch)
+    and 1000 (the whole graph), with the times of the kernel, the plain
+    version and ``iters`` cuBLAS FP32 products (the library yardstick), the
+    FP32 bound and bit-equality of two launches."""
+    import torch
+
+    from ppr_tpu_torch.graph.io import synthetic_powerlaw
+    from ppr_tpu_torch.models.neo4j_method import personalized_pagerank_batch
+    from ppr_tpu_torch.models.power_method import power_method_batch
+    from ppr_tpu_torch.ops import dense_power
+
+    ds_b = synthetic_powerlaw(1000, 16, seed=11, dense_threshold=1024,
+                              device=dev)
+    ds_b_sparse = synthetic_powerlaw(1000, 16, seed=11, dense_threshold=0,
+                                     device=dev)
+    rng = np.random.default_rng(1)
+    cases = [("a", ds_a, ds_a_sparse, sources_50),
+             ("b50", ds_b, ds_b_sparse, rng.choice(1000, 50, replace=False)),
+             ("b128", ds_b, ds_b_sparse, rng.choice(1000, 128,
+                                                    replace=False)),
+             ("b1000", ds_b, ds_b_sparse, np.arange(1000))]
+    damping = 1.0 - ALPHA
+    k1 = {"max_abs_err": 0.0, "shapes": []}
+    k2 = {"max_abs_err": 0.0, "shapes": []}
+    for name, k, iters, tol in (("k1", k1, ITERS, K1_TOL),
+                                ("k2", k2, K2_ITERS, K2_TOL)):
+        for tag, ds, ds_sparse, sources in cases:
+            g = ds.graph
+            check(dense_power.supports(g), f"{name} does not support {tag}")
+            onehot = torch.nn.functional.one_hot(
+                torch.as_tensor(sources, device=dev), g.n_pad).float()
+            if name == "k1":
+                def kernel():
+                    return dense_power.dense_power_iterations(
+                        g, onehot, ALPHA, iters)
+
+                def plain():
+                    return dense_power.dense_power_iterations_ref(
+                        g, onehot, ALPHA, iters)
+                sparse = power_method_batch(ds_sparse.graph, sources, ALPHA,
+                                            iters)
+            else:
+                def kernel():
+                    return dense_power.dense_pagerank_iterations(
+                        g, onehot, damping, iters)
+
+                def plain():
+                    return dense_power.dense_pagerank_iterations_ref(
+                        g, onehot, damping, iters)
+                sparse = personalized_pagerank_batch(
+                    ds_sparse.graph, sources, damping, iters)
+            out, again, ref = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            err_ref = (out - ref).abs().max().item()
+            normed = out if name == "k1" else out / out.sum(-1, keepdim=True)
+            err_sparse = (normed - sparse).abs().max().item()
+            equal = torch.equal(out, again)
+            extra = ""
+            if name == "k1":
+                nd = dense_power.dense_power_iterations(
+                    g, onehot, ALPHA, iters, dangling_to_source=False)
+                nd_ref = dense_power.dense_power_iterations_ref(
+                    g, onehot, ALPHA, iters, dangling_to_source=False)
+                err_nd = (nd - nd_ref).abs().max().item()
+                extra = f" (no-dangling variant {err_nd:.3e})"
+                check(err_nd <= tol, f"K1 {tag} no-dangling: {err_nd}")
+                err_ref = max(err_ref, err_nd)
+                if tag == "a":
+                    k["out_a"] = out.cpu().numpy()
+            ms = cuda_ms(kernel)
+            plain_ms = cuda_ms(plain)
+            library_ms = library_loop_ms(onehot, g.dense_out, iters)
+            round_ms = library_ms / iters
+            b, n = len(sources), g.n_pad
+            bound_ms, bound_by = dense_bound(b, n, iters)
+            print(f"[{name}:{tag}] n={g.n} n_pad={n} B={b} iters={iters}: "
+                  f"max|kernel-plain|={err_ref:.3e} "
+                  f"max|kernel-sparse|={err_sparse:.3e}{extra}, two "
+                  f"launches bit-equal: {equal}; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library_ms {library_ms:.4f} ({iters} "
+                  f"chained torch.matmul FP32 in one CUDA graph, "
+                  f"{round_ms:.4f} ms a product), bound_ms "
+                  f"{bound_ms:.4f} ({bound_by}), share {bound_ms / ms:.3f} "
+                  f"(medians of 10)")
+            for what, err in (("plain", err_ref), ("sparse", err_sparse)):
+                check(err <= tol, f"{name} {tag}: |kernel-{what}| = {err}")
+            check(equal, f"{name} {tag}: two launches differ")
+            check(bool(torch.isfinite(out).all()), f"{name} {tag}: not finite")
+            k["max_abs_err"] = max(k["max_abs_err"], err_ref)
+            k["shapes"].append({
+                "case": tag, "n_pad": n, "batch": b, "iters": iters,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by})
+        # the line's headline: shape a (n_pad 128, B 50), as in earlier
+        # lines; the n_pad 1024 shapes are in "shapes"
+        k.update({key: k["shapes"][0][key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    return k1, k2
 
 
 def profile_batch(algo, sources) -> None:
@@ -426,7 +593,7 @@ def run_protocol(tag: str, argv: list[str]):
     try:
         os.chdir(work)
         with open(log, "w") as f, contextlib.redirect_stdout(f):
-            cli.main([*argv, "--out-dir", work])
+            cli.main([*argv, "--out-dir", work, "--device", "cuda"])
     except BaseException:
         with open(log) as f:
             sys.stderr.write(f.read()[-4000:])
@@ -524,9 +691,11 @@ def read_back(algo, work: str, param, sources, direct):
     return err, nbytes, secs
 
 
-def protocol_path(dev) -> dict[str, int]:
+def protocol_path(dev, k2_b128_ms: float) -> dict[str, int]:
     """The protocol CLI on three graphs; returns the path's launch
-    counts, read before the stores' read-back checks."""
+    counts, read before the stores' read-back checks. ``k2_b128_ms`` is
+    K2's time at a preprocessing batch (n_pad 1024, B 128), to split the
+    k2max preprocessing rows."""
     import torch
 
     from ppr_tpu_torch import cli
@@ -566,6 +735,10 @@ def protocol_path(dev) -> dict[str, int]:
           f"Tests 1 and 3: wall {wall:.1f} s; K2 launches so far "
           f"{dense_power.pagerank_launches}")
     check_protocol_rows("k2max", rows)
+    prep = {r[0]: float(r[2]) for r in rows[(3, "NEO4J_METHOD")]}
+    print(f"[protocol:k2max] prep ms a param, by iterations: {prep}; K2's "
+          f"share at {K2_ITERS}: 8 batches x [k2:b128] {k2_b128_ms:.3f} ms "
+          f"= {8 * k2_b128_ms:.1f} ms of {prep.get(str(K2_ITERS), 0.0):.1f}")
 
     k2_before = dense_power.pagerank_launches
     rows, wall, _ = run_protocol("grqc", [
@@ -629,7 +802,6 @@ def main() -> int:
     from ppr_tpu_torch.device import set_exact_f32_matmul
     from ppr_tpu_torch.graph.io import load_default, synthetic_powerlaw
     from ppr_tpu_torch.models.config import AlgoConf
-    from ppr_tpu_torch.models.neo4j_method import personalized_pagerank_batch
     from ppr_tpu_torch.models.power_method import power_method_batch
     from ppr_tpu_torch.ops import cuda_build, dense_power, probe
     from ppr_tpu_torch.service import PPRService
@@ -652,11 +824,13 @@ def main() -> int:
         print(f"[build] {name}.cu: nvcc {secs:.2f} s")
         for line in log.splitlines():
             # the mangled entry names hold the kernel and its template
-            # argument: CPT (dense_power) or the load type (row_gather)
-            entry = re.search(r"(ppr_\w+?_kernel)(?:ILi(\d)E|I6?(\w+?)E)?",
-                              line)
+            # arguments: (RT, mode) (dense_power), the load type
+            # (row_gather)
+            entry = re.search(r"(ppr_\w+?_kernel)(?:ILi(\d)ELi(\d)E"
+                              r"|ILi(\d)E|I6?(\w+?)E)?", line)
             if "entry function" in line and entry:
-                arg = entry[2] or entry[3]
+                arg = (", ".join(entry.group(2, 3)) if entry[2]
+                       else entry[4] or entry[5])
                 print(f"[build] ptxas: {entry[1]}{f'<{arg}>' if arg else ''}")
             elif "registers" in line or "spill" in line:
                 print(f"[build] ptxas: {line.strip()}")
@@ -668,97 +842,22 @@ def main() -> int:
     y0 = probe.double(x0)
     k0_err = (y0 - probe.double_ref(x0)).abs().max().item()
     check(torch.equal(y0, probe.double_ref(x0)), "K0 differs from 2x")
+    # the plain version is the one PyTorch call, x * 2.0
+    k0_bound, k0_by = bound(x0.numel(), 8.0 * x0.numel())
     k0 = {"max_abs_err": k0_err,
           "ms": cuda_ms(lambda: probe.double(x0)),
-          "plain_ms": cuda_ms(lambda: probe.double_ref(x0))}
+          "plain_ms": cuda_ms(lambda: probe.double_ref(x0)),
+          "bound_ms": k0_bound, "bound_by": k0_by}
+    k0["library_ms"] = k0["plain_ms"]
     print(f"[k0] y = 2x on f32 {list(probe.SHAPE)}: equal bit for bit; "
           f"kernel {k0['ms']:.4f} ms, plain {k0['plain_ms']:.4f} ms "
-          f"(median of 10)")
+          f"(median of 10); bound_ms {k0_bound:.2e} ({k0_by})")
 
-    # --- 4. K1 against its plain version ---------------------------------
+    # --- 4-5. K1 and K2 against their plain versions -------------------
     ds_a = load_default(device=dev)
     ds_a_sparse = load_default(dense_threshold=0, device=dev)
     sources_50 = np.random.default_rng(0).choice(ds_a.n, 50, replace=False)
-    ds_b = synthetic_powerlaw(1000, 16, seed=11, dense_threshold=1024,
-                              device=dev)
-    ds_b_sparse = synthetic_powerlaw(1000, 16, seed=11, dense_threshold=0,
-                                     device=dev)
-    k1 = {"max_abs_err": 0.0, "shapes": []}
-    for tag, ds, ds_sparse, sources in (
-        ("a", ds_a, ds_a_sparse, sources_50),
-        ("b", ds_b, ds_b_sparse, np.arange(ds_b.n)),
-    ):
-        g = ds.graph
-        check(dense_power.supports(g), f"K1 does not support graph {tag}")
-        onehot = torch.nn.functional.one_hot(
-            torch.as_tensor(sources, device=dev), g.n_pad).float()
-        out = dense_power.dense_power_iterations(g, onehot, ALPHA, ITERS)
-        ref = dense_power.dense_power_iterations_ref(g, onehot, ALPHA, ITERS)
-        sparse = power_method_batch(ds_sparse.graph, sources, ALPHA, ITERS)
-        torch.cuda.synchronize()
-        err_ref = (out - ref).abs().max().item()
-        err_sparse = (out - sparse).abs().max().item()
-        out_nd = dense_power.dense_power_iterations(
-            g, onehot, ALPHA, ITERS, dangling_to_source=False)
-        ref_nd = dense_power.dense_power_iterations_ref(
-            g, onehot, ALPHA, ITERS, dangling_to_source=False)
-        err_nd = (out_nd - ref_nd).abs().max().item()
-        ms = cuda_ms(lambda: dense_power.dense_power_iterations(
-            g, onehot, ALPHA, ITERS))
-        plain_ms = cuda_ms(lambda: dense_power.dense_power_iterations_ref(
-            g, onehot, ALPHA, ITERS))
-        print(f"[k1:{tag}] n={g.n} n_pad={g.n_pad} B={len(sources)} "
-              f"iters={ITERS}: max|kernel-plain|={err_ref:.3e} "
-              f"max|kernel-sparse|={err_sparse:.3e} "
-              f"(no-dangling variant {err_nd:.3e}); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms (median of 10)")
-        for what, err in (("plain", err_ref), ("sparse", err_sparse),
-                          ("plain, no-dangling", err_nd)):
-            check(err <= K1_TOL, f"K1 graph {tag}: |kernel-{what}| = {err}")
-        check(bool(torch.isfinite(out).all()), f"K1 graph {tag}: not finite")
-        k1["max_abs_err"] = max(k1["max_abs_err"], err_ref, err_nd)
-        k1["shapes"].append({"n_pad": g.n_pad, "batch": len(sources),
-                             "iters": ITERS, "ms": ms, "plain_ms": plain_ms})
-        if tag == "a":
-            k1.update(ms=ms, plain_ms=plain_ms, out_a=out.cpu().numpy())
-
-    # --- 5. K2 against its plain version and the sparse iteration --------
-    damping = 1.0 - ALPHA
-    k2 = {"max_abs_err": 0.0, "shapes": []}
-    for tag, ds, ds_sparse, sources in (
-        ("a", ds_a, ds_a_sparse, sources_50),
-        ("b", ds_b, ds_b_sparse, np.arange(ds_b.n)),
-    ):
-        g = ds.graph
-        onehot = torch.nn.functional.one_hot(
-            torch.as_tensor(sources, device=dev), g.n_pad).float()
-        out = dense_power.dense_pagerank_iterations(g, onehot, damping,
-                                                    K2_ITERS)
-        ref = dense_power.dense_pagerank_iterations_ref(g, onehot, damping,
-                                                        K2_ITERS)
-        sparse = personalized_pagerank_batch(ds_sparse.graph, sources,
-                                             damping, K2_ITERS)
-        torch.cuda.synchronize()
-        err_ref = (out - ref).abs().max().item()
-        err_sparse = (out / out.sum(-1, keepdim=True) - sparse) \
-            .abs().max().item()
-        ms = cuda_ms(lambda: dense_power.dense_pagerank_iterations(
-            g, onehot, damping, K2_ITERS))
-        plain_ms = cuda_ms(lambda: dense_power.dense_pagerank_iterations_ref(
-            g, onehot, damping, K2_ITERS))
-        print(f"[k2:{tag}] n={g.n} n_pad={g.n_pad} B={len(sources)} "
-              f"iters={K2_ITERS}: max|kernel-plain|={err_ref:.3e} "
-              f"max|normalized kernel-sparse Neo4j|={err_sparse:.3e}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 10)")
-        for what, err in (("plain", err_ref), ("sparse", err_sparse)):
-            check(err <= K2_TOL, f"K2 graph {tag}: |kernel-{what}| = {err}")
-        check(bool(torch.isfinite(out).all()), f"K2 graph {tag}: not finite")
-        k2["max_abs_err"] = max(k2["max_abs_err"], err_ref)
-        k2["shapes"].append({"n_pad": g.n_pad, "batch": len(sources),
-                             "iters": K2_ITERS, "ms": ms,
-                             "plain_ms": plain_ms})
-        if tag == "a":
-            k2.update(ms=ms, plain_ms=plain_ms)
+    k1, k2 = dense_phase(dev, ds_a, ds_a_sparse, sources_50)
 
     # --- 6. K3 and P1-P4 against their plain versions -------------------
     # the benchmark's graph and service, built once here for K3's tail
@@ -871,7 +970,8 @@ def main() -> int:
     profile_batch(algo, sources)
 
     # --- 9. the protocol path ----------------------------------------------
-    protocol = protocol_path(dev)
+    protocol = protocol_path(dev, next(
+        sh["ms"] for sh in k2["shapes"] if sh["case"] == "b128"))
     check(protocol["k3"] > 0, "K3 was not launched on the protocol path")
     launches = {k: serving[k] + protocol[k] for k in serving}
     print(f"[launches] serving path {serving}, protocol path {protocol}")
@@ -885,6 +985,9 @@ def main() -> int:
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "library_ms": k1["library_ms"],
         "shapes": k1["shapes"],
     }, {
         "name": "dense_pagerank_iterations",
@@ -895,6 +998,9 @@ def main() -> int:
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"],
         "shapes": k2["shapes"],
     }, {
         "name": "canary_probe",
@@ -905,8 +1011,12 @@ def main() -> int:
         "max_abs_err": k0["max_abs_err"],
         "ms": k0["ms"],
         "plain_ms": k0["plain_ms"],
+        "bound_ms": k0["bound_ms"],
+        "bound_by": k0["bound_by"],
+        "library_ms": k0["library_ms"],
         "shapes": [{"shape": list(probe.SHAPE), "ms": k0["ms"],
-                    "plain_ms": k0["plain_ms"]}],
+                    "plain_ms": k0["plain_ms"],
+                    "bound_ms": k0["bound_ms"]}],
     }, {
         "name": "gather_segment_sum",
         "route": "cuda",
@@ -917,6 +1027,9 @@ def main() -> int:
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": None,   # no one PyTorch call sums gathered rows
         "shapes": k3["shapes"],
     }, {
         "name": "row_gather",
@@ -931,6 +1044,9 @@ def main() -> int:
         "max_abs_err": rg["max_abs_err"],
         "ms": rg["ms"],
         "plain_ms": rg["plain_ms"],
+        "bound_ms": rg["bound_ms"],
+        "bound_by": rg["bound_by"],
+        "library_ms": rg["plain_ms"],   # its plain version: index_select
         "shapes": rg["shapes"],
     }]}))
     print(card)

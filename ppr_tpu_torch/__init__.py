@@ -6,8 +6,9 @@ rewritten by hand for Hopper (``csrc/``). The package never imports JAX; the
 JAX package is the reference its tests hold it against.
 
 Every tensor lives on the device chosen once, when the graph is placed
-(:mod:`ppr_tpu_torch.device`); nothing moves work back to the CPU for a
-CUDA tensor.
+(:mod:`ppr_tpu_torch.device`): the card unless the caller asks for the
+CPU, and an error when no card is visible. Nothing moves work back to the
+CPU for a CUDA tensor.
 """
 
 __version__ = "0.1.0"

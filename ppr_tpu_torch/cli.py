@@ -5,7 +5,8 @@ reference's main (PPR.java:154-200; defaults at :168-184).
 file, or a ``synth:<n>x<deg>[@seed]`` / ``synth:<name>`` spec; the program
 runs the reference's batch benchmark (``algo_perf_batch_test(query, k)``,
 PPR.java:192) through :class:`~ppr_tpu_torch.harness.PerfHarness`, on the
-card when the process sees one.
+card; ``--device cpu`` asks for the CPU, and without it a process that
+sees no card exits with an error rather than run there.
 
 Usage::
 
@@ -83,6 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "test here")
     p.add_argument("--mesh", default=None, metavar="DxG",
                    help="device mesh (not ported: raises)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the graph and the algorithms run (default "
+                        "cuda: exits with an error when no card is "
+                        "visible; cpu runs the kernels' plain versions)")
     return p
 
 
@@ -100,8 +105,8 @@ _NEOSTORE_MARKER = "neostore.nodestore.db"
 
 
 def load_dataset(db: str, rel: str | None = None, device=None):
-    """The dataset ``db`` names, on ``device`` (default: the card when the
-    process sees one). ``rel`` filters a Neo4j store load in the JAX
+    """The dataset ``db`` names, on ``device`` (default: the card; raises
+    when no card is visible). ``rel`` filters a Neo4j store load in the JAX
     package; the formats ported here are single-type and ignore it."""
     if db.startswith("synth:"):
         spec = db[len("synth:"):]
@@ -142,7 +147,7 @@ def main(argv=None) -> int:
             "--mesh: the sharded engines are not ported yet (ROADMAP.md, "
             "queue 1, item 18)"
         )
-    dataset = load_dataset(args.db, rel=args.rel)
+    dataset = load_dataset(args.db, rel=args.rel, device=args.device)
     print(f"Loaded dataset '{dataset.name}': {dataset.graph.n} nodes, "
           f"{dataset.graph.m} edges, on {dataset.graph.device}")
     harness = PerfHarness(

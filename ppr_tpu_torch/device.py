@@ -1,18 +1,34 @@
 """Where the port's tensors live.
 
 The device is chosen once, when a graph is placed (``build_graph(...,
-device=...)``): ``cuda`` when the process sees a card, ``cpu`` otherwise.
-Every later tensor follows the graph's device. This is a placement, not a
-fallback: a function handed a CUDA tensor runs on the card or raises.
+device=...)``), and every later tensor follows the graph's device. The
+default, ``device=None``, is the card: with no CUDA device visible it
+raises, and never carries on on the CPU. A caller that wants the CPU asks
+for it (``device="cpu"``, or ``--device cpu`` on the CLI), as the tests do.
+A function handed a CUDA tensor runs on the card or raises.
 """
 
 from __future__ import annotations
 
 import torch
 
+NO_CARD = ("no CUDA device is visible: the port runs on the card by "
+           "default; pass device=\"cpu\" (--device cpu on the CLI) to run "
+           "on the CPU")
 
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the card. A CUDA
+    device, the default included, raises ``RuntimeError`` when the process
+    sees no card."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(NO_CARD)
+    return device
+
+
+#: the card (``resolve_device()``)
+default_device = resolve_device
 
 
 def set_exact_f32_matmul() -> None:

@@ -24,7 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..device import default_device
+from ..device import resolve_device
 
 LANES = 128  # padding unit, kept from the JAX package so n_pad matches
 
@@ -103,7 +103,7 @@ def graph_from_numpy(arrays: dict, device=None) -> Graph:
             "weighted graphs and alias tables are not ported yet "
             "(ROADMAP.md, queue 1, slice B)"
         )
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(device)
     # np.array copies: the tensors own their memory (a JAX array's host
     # view is read-only)
     t = {k: torch.as_tensor(np.array(arrays[k], np.int32), device=device)

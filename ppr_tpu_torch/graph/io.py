@@ -2,8 +2,9 @@
 
 Neo4j-import CSV pairs, SNAP edge lists and seeded synthetic graphs, loaded
 straight into a :class:`~ppr_tpu_torch.graph.csr.Graph` on the chosen
-device. The generators are numpy, so a seed gives the same edges as the JAX
-package.
+device (``device=None``: the card, an error when none is visible;
+``device="cpu"`` for the CPU). The generators are numpy, so a seed gives
+the same edges as the JAX package.
 """
 
 from __future__ import annotations

@@ -17,6 +17,10 @@ Neo4j-library iteration, un-normalized:
 The products are full f32 (FP32 FMA), as the TPU kernels'
 ``Precision.HIGHEST``.
 
+The kernels split W's columns across a thread block cluster: each block
+streams its 128-column slice of W and reads the round's x from its peers'
+shared memory (the source's note gives the design).
+
 ``*_ref`` are the same computations in plain PyTorch. A wrapper runs its
 plain version only for a tensor that lies on the CPU; for a CUDA tensor it
 runs the toolchain probe K0 once (``ops/probe.py``, where the JAX package
@@ -102,6 +106,8 @@ def _kernel_operands(g: Graph, src_onehot: torch.Tensor, what: str):
     if src_onehot.dim() != 2 or src_onehot.shape[1] != n:
         raise ValueError(f"src_onehot must be [B, {n}], got "
                          f"{tuple(src_onehot.shape)}")
+    if w.data_ptr() % 16:
+        raise ValueError("dense_out must be 16-byte aligned")
     return w, n
 
 

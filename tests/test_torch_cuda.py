@@ -40,36 +40,65 @@ def cuda():
     return torch.device("cuda")
 
 
+# clusters of 1, 2, 3, 4 and 8 blocks; the batches give ragged row tiles
+# and, at n_pad 1024 (15 resident clusters of 8 on an H100 SXM), every
+# tile height of both thread layouts: B 1-50 -> 8 rows, 128 -> 16, 300 ->
+# 32 (short tiles), 700 -> 64, 1000 -> 72 (tall tiles)
+DENSE_N = {128: 107, 256: 200, 384: 300, 512: 500, 1024: 1000}
+BATCHES = [1, 7, 50, 128, 300, 700, 1000]
+
+
+@pytest.fixture(scope="module")
+def dense_graphs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    out = {}
+    for n_pad, n in DENSE_N.items():
+        g = (load_default(device="cuda") if n == 107 else
+             synthetic_powerlaw(n, 16, seed=11, dense_threshold=1024,
+                                device="cuda")).graph
+        assert g.n_pad == n_pad and dense_power.supports(g)
+        out[n_pad] = g
+    return out
+
+
+def dense_onehot(g, b):
+    sources = torch.as_tensor(
+        np.random.default_rng(g.n_pad + b).integers(0, g.n, b), device="cuda")
+    return torch.nn.functional.one_hot(sources, g.n_pad).float()
+
+
 @pytest.mark.parametrize("dangling_to_source", [True, False],
                          ids=["to_source", "dropped"])
-@pytest.mark.parametrize("n,b", [(107, 50), (1000, 1000), (300, 3)])
-def test_k1_matches_plain(cuda, n, b, dangling_to_source):
-    g = (load_default(device=cuda) if n == 107 else
-         synthetic_powerlaw(n, 16, seed=11, dense_threshold=1024,
-                            device=cuda)).graph
-    assert dense_power.supports(g)
-    sources = torch.as_tensor(np.random.default_rng(n).integers(0, g.n, b),
-                              device=cuda)
-    onehot = torch.nn.functional.one_hot(sources, g.n_pad).float()
+@pytest.mark.parametrize("iters", [0, 1, 300])
+@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("n_pad", sorted(DENSE_N))
+def test_k1_matches_plain(dense_graphs, n_pad, b, iters, dangling_to_source):
+    g = dense_graphs[n_pad]
+    onehot = dense_onehot(g, b)
     before = dense_power.launches
     out = dense_power.dense_power_iterations(
-        g, onehot, ALPHA, 100, dangling_to_source=dangling_to_source)
+        g, onehot, ALPHA, iters, dangling_to_source=dangling_to_source)
+    again = dense_power.dense_power_iterations(
+        g, onehot, ALPHA, iters, dangling_to_source=dangling_to_source)
     ref = dense_power.dense_power_iterations_ref(
-        g, onehot, ALPHA, 100, dangling_to_source=dangling_to_source)
+        g, onehot, ALPHA, iters, dangling_to_source=dangling_to_source)
     torch.cuda.synchronize()
-    assert dense_power.launches == before + 1
+    assert dense_power.launches == before + 2
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+    assert torch.equal(out, again)          # a fixed summation order
+    if iters <= 1:
+        assert torch.equal(out, ref)
 
 
-def test_k1_rejects_bad_operands(cuda):
-    g = load_default(device=cuda).graph
-    with pytest.raises(ValueError):
-        dense_power.dense_power_iterations(
-            g, torch.zeros((2, g.n_pad), device=cuda, dtype=torch.float64),
-            ALPHA, 10)
-    with pytest.raises(ValueError):
-        dense_power.dense_power_iterations(
-            g, torch.zeros((2, g.n_pad + 4), device=cuda), ALPHA, 10)
+@pytest.mark.parametrize("n_pad", [128, 1024])
+def test_k1_rejects_bad_operands(dense_graphs, n_pad):
+    g = dense_graphs[n_pad]
+    for bad in (torch.zeros((2, g.n_pad), device="cuda", dtype=torch.float64),
+                torch.zeros((2, g.n_pad + 4), device="cuda"),
+                torch.zeros((g.n_pad, 2), device="cuda").T):
+        with pytest.raises(ValueError):
+            dense_power.dense_power_iterations(g, bad, ALPHA, 10)
 
 
 def test_power_method_runs_k1(cuda):
@@ -127,29 +156,34 @@ def test_k0_doubles(cuda):
     assert torch.equal(y, probe.double_ref(x))
 
 
-def dense_case(cuda, n):
-    return (load_default(device=cuda) if n == 107 else
-            synthetic_powerlaw(n, 16, seed=11, dense_threshold=1024,
-                               device=cuda)).graph
-
-
-@pytest.mark.parametrize("iters", [0, 300])
-@pytest.mark.parametrize("n,b", [(107, 50), (1000, 1000), (300, 3)])
-def test_k2_matches_plain(cuda, n, b, iters):
-    g = dense_case(cuda, n)
-    assert dense_power.supports(g)
-    sources = torch.as_tensor(np.random.default_rng(n).integers(0, g.n, b),
-                              device=cuda)
-    onehot = torch.nn.functional.one_hot(sources, g.n_pad).float()
+@pytest.mark.parametrize("iters", [0, 1, 300])
+@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("n_pad", sorted(DENSE_N))
+def test_k2_matches_plain(dense_graphs, n_pad, b, iters):
+    g = dense_graphs[n_pad]
+    onehot = dense_onehot(g, b)
     before = dense_power.pagerank_launches
     out = dense_power.dense_pagerank_iterations(g, onehot, 1 - ALPHA, iters)
+    again = dense_power.dense_pagerank_iterations(g, onehot, 1 - ALPHA,
+                                                  iters)
     ref = dense_power.dense_pagerank_iterations_ref(g, onehot, 1 - ALPHA,
                                                     iters)
     torch.cuda.synchronize()
-    assert dense_power.pagerank_launches == before + 1
+    assert dense_power.pagerank_launches == before + 2
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+    assert torch.equal(out, again)
     if iters == 0:
         assert torch.equal(out, ref)
+
+
+def test_dense_kernels_cpu_tensor_never_launches(dense_graphs):
+    cpu = synthetic_powerlaw(500, 16, seed=11, dense_threshold=1024,
+                             device="cpu").graph
+    onehot = dense_onehot(dense_graphs[512], 3).cpu()
+    before = (dense_power.launches, dense_power.pagerank_launches)
+    dense_power.dense_power_iterations(cpu, onehot, ALPHA, 5)
+    dense_power.dense_pagerank_iterations(cpu, onehot, 1 - ALPHA, 5)
+    assert (dense_power.launches, dense_power.pagerank_launches) == before
 
 
 def test_k2_rejects_bad_operands(cuda):

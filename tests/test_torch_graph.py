@@ -9,6 +9,7 @@ import torch
 
 from ppr_tpu.graph import csr as jcsr
 from ppr_tpu.graph import io as jio
+from ppr_tpu_torch.device import default_device, resolve_device
 from ppr_tpu_torch.graph import csr as tcsr
 from ppr_tpu_torch.graph import io as tio
 
@@ -110,6 +111,50 @@ def test_neo4j_csv_loader(tmp_path):
     td = tio.load_neo4j_csv(str(nodes), str(rels), device="cpu")
     assert td.names == ["Arya", "Bran", "Cersei"] and td.name == jd.name
     assert_same_graph(jd.graph, td.graph)
+
+
+def test_default_device_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        default_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _write_inputs(tmp_path):
+    (tmp_path / "n.csv").write_text(":ID,name\na,A\nb,B\n")
+    (tmp_path / "r.csv").write_text(":START_ID,:END_ID\na,b\n")
+    (tmp_path / "e.txt").write_text("1 2\n2 3\n")
+
+
+_LOADERS = {
+    "synthetic_powerlaw": lambda p, **kw: tio.synthetic_powerlaw(64, 4, **kw),
+    "load_default": lambda p, **kw: tio.load_default(**kw),
+    "load_neo4j_csv": lambda p, **kw: tio.load_neo4j_csv(
+        str(p / "n.csv"), str(p / "r.csv"), **kw),
+    "load_edge_list": lambda p, **kw: tio.load_edge_list(str(p / "e.txt"),
+                                                         **kw),
+    "build_graph": lambda p, **kw: tcsr.build_graph([0], [1], 2, **kw),
+}
+
+
+@pytest.mark.parametrize("loader", sorted(_LOADERS))
+def test_loaders_place_on_the_card_unless_asked(tmp_path, monkeypatch,
+                                                loader):
+    """``device=None`` means the card: with none visible every loader
+    raises; it never places the graph on the CPU by itself."""
+    _write_inputs(tmp_path)
+    load = _LOADERS[loader]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load(tmp_path, device="cuda")
+    out = load(tmp_path, device="cpu")
+    assert getattr(out, "graph", out).device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("dense_threshold", [4096, 0],

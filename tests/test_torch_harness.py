@@ -277,6 +277,8 @@ def test_parser_defaults_match_jax():
     port = vars(tcli.build_parser().parse_args([]))
     ref = vars(jcli.build_parser().parse_args([]))
     assert port.pop("db") == tio.REFERENCE_GOT_DIR
+    # the port's own flag (the JAX CLI picks its platform through JAX)
+    assert port.pop("device") == "cuda"
     ref.pop("db")
     assert port == ref
     args = tcli.build_parser().parse_args(["--query", "3", "--k", "5"])
@@ -329,7 +331,7 @@ def test_cli_main(tmp_path, monkeypatch, capsys):
     assert tcli.main(["--db", "synth:107x3@7", "--sweep", "got", "--query",
                       "4", "--k", "5", "--tests", "1,2,3", "--algos",
                       "NEO4J_METHOD,FORA_TOPK", "--out-dir", "out",
-                      "--trace-dir", "trace"]) == 0
+                      "--trace-dir", "trace", "--device", "cpu"]) == 0
     text = (tmp_path / "out" / "synth_107_7_AlgoPerfResults.txt").read_text()
     for section in ("1.3 NEO4J_METHOD", "2.2 FORA_TOPK", "2.5 NEO4J_METHOD",
                     "3.3 NEO4J_METHOD"):
@@ -346,7 +348,8 @@ def test_cli_main_push_algorithms(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     assert tcli.main(["--db", "synth:107x3@7", "--sweep", "got", "--query",
                       "3", "--k", "5", "--tests", "1,2,3", "--algos",
-                      "FWDPUSH,BASE_WHOLE_GRAPH", "--out-dir", "out"]) == 0
+                      "FWDPUSH,BASE_WHOLE_GRAPH", "--out-dir", "out",
+                      "--device", "cpu"]) == 0
     text = (tmp_path / "out" / "synth_107_7_AlgoPerfResults.txt").read_text()
     for section in ("1.2 FWDPUSH", "1.5 BASE_WHOLE_GRAPH",
                     "2.1 BASE_WHOLE_GRAPH", "2.4 FWDPUSH", "3.2 FWDPUSH",
@@ -357,7 +360,8 @@ def test_cli_main_push_algorithms(tmp_path, monkeypatch):
     assert "-1,0.001," in text and "0.001,5," in text
     assert tcli.main(["--db", "synth:107x3@7", "--sweep", "got", "--query",
                       "2", "--tests", "1", "--algos", "BASE_WHOLE_GRAPH",
-                      "--budget-s", "0", "--out-dir", "cut"]) == 0
+                      "--budget-s", "0", "--out-dir", "cut",
+                      "--device", "cpu"]) == 0
     assert "# remaining params skipped (budget 0s exceeded): " \
         "[0.0005, 5e-05, 1e-06, 5e-07]" in \
         (tmp_path / "cut" / "synth_107_7_AlgoPerfResults.txt").read_text()
@@ -366,14 +370,54 @@ def test_cli_main_push_algorithms(tmp_path, monkeypatch):
 def test_cli_unported_flags_raise(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="item 18"):
-        tcli.main(["--db", "synth:107x3@7", "--mesh", "1x1"])
+        tcli.main(["--db", "synth:107x3@7", "--mesh", "1x1",
+                   "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 11"):
-        tcli.main(["--db", "synth:107x3@7", "--fora-completion", "walks"])
+        tcli.main(["--db", "synth:107x3@7", "--fora-completion", "walks",
+                   "--device", "cpu"])
     with pytest.raises(SystemExit, match="dataset not found"):
-        tcli.main(["--db", str(tmp_path / "nothing")])
+        tcli.main(["--db", str(tmp_path / "nothing"), "--device", "cpu"])
     if not os.path.isdir(tio.REFERENCE_GOT_DIR):   # the CSVs are not committed
         with pytest.raises(SystemExit, match="dataset not found"):
-            tcli.main([])
+            tcli.main(["--device", "cpu"])
+
+
+def test_cli_without_a_card_exits(tmp_path, monkeypatch):
+    """With no card visible the CLI stops with the "no CUDA device" error
+    unless ``--device cpu`` asks for the CPU; it writes no rows."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--db", "synth:107x3@7", "--sweep", "got", "--query", "2",
+            "--tests", "1", "--algos", "NEO4J_METHOD", "--out-dir", "out"]
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tcli.main(argv + extra)
+    assert not (tmp_path / "out").exists()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tcli.load_dataset("synth:grqc")
+    with pytest.raises(SystemExit):
+        tcli.build_parser().parse_args(["--device", "tpu"])
+
+
+@pytest.mark.parametrize("algos,tests", [("NEO4J_METHOD", "1,3"),
+                                         ("FORA_TOPK", "2")])
+def test_cli_device_cpu_rows_match_jax_cli(tmp_path, monkeypatch, algos,
+                                           tests):
+    """``--device cpu`` on a process without a card writes the JAX CLI's
+    rows for the same command (the rows the port wrote before the flag)."""
+    pin_jax_fora(monkeypatch)
+    argv = ["--db", "synth:107x3@7", "--sweep", "got", "--query", "4",
+            "--k", "5", "--tests", tests, "--algos", algos]
+    for pkg, main, extra in (("jax", jcli.main, []),
+                             ("port", tcli.main, ["--device", "cpu"])):
+        out = tmp_path / pkg
+        out.mkdir()
+        monkeypatch.chdir(out)
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "is_available", lambda: False)
+            assert main(argv + ["--out-dir", str(out)] + extra) == 0
+    name = "synth_107_7_AlgoPerfResults.txt"
+    assert_same_report(tmp_path / "port" / name, tmp_path / "jax" / name)
 
 
 def test_phase_timer():

@@ -39,6 +39,8 @@ MODULES = [
     "ppr_tpu_torch.service",
     "ppr_tpu_torch.harness",
     "ppr_tpu_torch.cli",
+    "chip_smoke",
+    "dense_power_ablation",
 ]
 
 _PROBE = """
