@@ -12,8 +12,15 @@ script exits non-zero:
 1. the card (``nvidia-smi`` name and power limit) and the torch build;
 2. build: ``ppr_tpu_torch/csrc/dense_power.cu`` (K1, K2),
    ``csrc/probe.cu`` (K0) and ``csrc/row_gather.cu`` (K3 and the
-   row-gather probes P1-P4), one nvcc each, started together; ptxas lines;
-3. K0, the toolchain probe, against ``2 * x`` bit for bit;
+   row-gather probes P1-P4), one nvcc each, started together; ptxas lines.
+   ``row_gather_ablation.py``'s builds of K3 with parts switched off are
+   compiled beside them;
+3. K0, the toolchain probe, against ``2 * x`` bit for bit. At shapes this
+   small one call between two events is the host's time to make it, so
+   K0, every ``[p1-p4]`` shape and every ``[k3]`` shape also get
+   ``host_us`` (a host clock over 1,000 un-synchronised calls) and
+   ``device_ms`` (the launches captured once and replayed as one CUDA
+   graph), for the wrapper and for the library call where there is one;
 4. K1 against its plain PyTorch version and against the sparse power
    method, at the paths' shapes: the 107-node GOT-scale graph (n_pad 128,
    B 50; ``[k1:a]``) and a 1000-node graph at the kernels' limit (n_pad
@@ -76,12 +83,14 @@ import json
 import os
 import re
 import shutil
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from ppr_tpu_torch.utils.cuda_timing import (card_line, cuda_ms, graph_ms,
+                                             host_us, l2_flusher)
 
 ALPHA, EPS, K = 0.15, 0.5, 10
 ITERS = 100
@@ -150,30 +159,55 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+def split_times(fn, launches: int, calls: int, before=None) -> dict:
+    """``host_us`` and ``device_ms`` of one wrapper or library call."""
+    return {"host_us": host_us(fn, calls),
+            "device_ms": graph_ms(fn, launches, before)}
 
 
-def cuda_ms(fn, runs: int = 10) -> float:
-    """Median milliseconds of ``runs`` calls, each between CUDA events,
-    after one warm-up call."""
+def k3_library(table, src, ptr):
+    """The one PyTorch call that computes K3's function, for ``library_ms``:
+    ``embedding_bag`` in ``sum`` mode with ``ptr`` as its offsets (the last
+    one included). It wants indices of the offsets' type, so they are cast
+    here, once, outside every timer. The port never calls it."""
+    import torch.nn.functional as F
+
+    index = src[: int(ptr[-1])].long()
+
+    def library():
+        return F.embedding_bag(index, table, ptr, mode="sum",
+                               include_last_offset=True)
+    return library
+
+
+def library_times(label, library, want, ms, split, launches, calls,
+                  before=None) -> dict:
+    """Time K3's library call as the kernel was timed, hold its result
+    against the plain version's (``want``), and say, like with like,
+    whether the kernel (``ms``, ``split``) is as fast."""
     import torch
 
-    fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    got = library()
+    torch.cuda.synchronize()
+    rel = rel_err(got, want)
+    check(rel <= K3_TOL, f"K3 {label}: embedding_bag's relative error {rel} "
+          f"> {K3_TOL}")
+    equal = torch.equal(got, want)
+    del got
+    lib = split_times(library, launches, calls, before)
+    out = {"library_ms": cuda_ms(library, before=before),
+           "library_host_us": lib["host_us"],
+           "library_device_ms": lib["device_ms"],
+           "library_equal": equal}
+    print(f"[k3] {label}: library call embedding_bag(mode='sum') "
+          f"{out['library_ms']:.4f} ms between events, host_us "
+          f"{out['library_host_us']:.2f}, device_ms "
+          f"{out['library_device_ms']:.4f}; equal to the plain version bit "
+          f"for bit: {equal}; the kernel is "
+          f"{out['library_ms'] / ms:.2f}x as fast between events, "
+          f"{out['library_device_ms'] / split['device_ms']:.2f}x in a graph, "
+          f"{out['library_host_us'] / split['host_us']:.2f}x on the host")
+    return out
 
 
 def scipy_power_method(g, sources, alpha, iters=ITERS) -> np.ndarray:
@@ -238,6 +272,7 @@ def k3_phase(dev, bench_g, hs, grqc_g) -> dict:
 
     out = {"max_abs_err": 0.0, "shapes": []}
     gen = torch.Generator(device=dev).manual_seed(3)
+    flush = l2_flusher(dev)
     for label, n_rows, src, ptr, b in (
         ("bench tail", bench_g.n_pad, hs.tail_src, hs.tail_ptr, 2048),
         ("grqc by-dst", grqc_g.n_pad, grqc_g.edge_src_bydst,
@@ -251,28 +286,69 @@ def k3_phase(dev, bench_g, hs, grqc_g) -> dict:
         want = rgm.gather_segment_sum_ref(table, src, ptr)
         torch.cuda.synchronize()
         err, rel = float((got - want).abs().max()), rel_err(got, want)
-        ms = cuda_ms(lambda: rgm.gather_segment_sum(table, src, ptr))
-        plain_ms = cuda_ms(lambda: rgm.gather_segment_sum_ref(table, src, ptr))
+        equal = torch.equal(got, want)
+        again = torch.equal(got, rgm.gather_segment_sum(table, src, ptr))
+        # in the sweep the caller's elementwise passes leave L2 cold
+        tail = label == "bench tail"
+        before = flush if tail else None
+        launches, calls = (20, 200) if tail else (1000, 1000)
+
+        def kernel():
+            return rgm.gather_segment_sum(table, src, ptr)
+
+        def plain():
+            return rgm.gather_segment_sum_ref(table, src, ptr)
+
+        ms = cuda_ms(kernel, before=before)
+        plain_ms = cuda_ms(plain, before=before)
+        split = split_times(kernel, launches, calls, before)
+        plain_host_us = host_us(plain, calls)
         edges = int(ptr[-1])
         segments = ptr.shape[0] - 1
         rows = int(torch.unique(src[:edges]).numel())
-        bound_ms, bound_by = bound(float(edges) * b, 4.0 * (
-            (rows + segments) * b + edges) + 8.0 * (segments + 1))
+        unique_bytes = 4.0 * ((rows + segments) * b + edges) \
+            + 8.0 * (segments + 1)
+        bound_ms, bound_by = bound(float(edges) * b, unique_bytes)
+        plan = rgm.make_plan(n_rows, b, True)
         print(f"[k3] {label}: {segments} segments, {edges} edges, "
-              f"B={b}: max abs err {err:.3e} (relative to the row "
-              f"{rel:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"(median of 10), {plain_ms / ms:.2f}x; bound_ms "
-              f"{bound_ms:.4f} ({bound_by}: {rows} distinct rows read)")
+              f"B={b}, {plan.tiles(b)} tiles of {plan.tile_cols} columns: max abs "
+              f"err {err:.3e} (relative to the row {rel:.3e}), equal to the "
+              f"plain version bit for bit: {equal}, two launches bit-equal: "
+              f"{again}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(median of 10{', L2 flushed before each' if tail else ''}), "
+              f"{plain_ms / ms:.2f}x; host_us {split['host_us']:.2f} (plain "
+              f"{plain_host_us:.2f}), device_ms {split['device_ms']:.4f} (a "
+              f"launch of {launches} in one CUDA graph); bound_ms "
+              f"{bound_ms:.4f} ({bound_by}: {rows} distinct rows read), "
+              f"share {bound_ms / split['device_ms']:.3f}")
+        shape = {"case": label, "segments": segments, "edges": edges,
+                 "cols": b, "tile_cols": plan.tile_cols, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "plain_host_us": plain_host_us,
+                 **split,
+                 **library_times(label, k3_library(table, src, ptr), want,
+                                 ms, split, launches, calls, before)}
+        if tail:
+            # what L2 delivers (every row read, the output) and what device
+            # memory must (each distinct row once, the output, the indices)
+            l2_bytes = 4.0 * (edges + segments) * b
+            shape["l2_tb_s"] = l2_bytes / split["device_ms"] / 1e9
+            shape["hbm_tb_s"] = unique_bytes / split["device_ms"] / 1e9
+            print(f"[k3] {label}: {l2_bytes / 1e9:.3f} GB of row reads and "
+                  f"output at {shape['l2_tb_s']:.2f} TB/s (L2); "
+                  f"{unique_bytes / 1e9:.3f} GB of unique bytes at "
+                  f"{shape['hbm_tb_s']:.2f} TB/s (device memory, peak "
+                  f"{PEAK_BYTES / 1e12:.2f})")
         check(rel <= K3_TOL, f"K3 {label}: relative error {rel} > {K3_TOL}")
+        check(equal, f"K3 {label}: differs from the plain version")
+        check(again, f"K3 {label}: two launches differ")
         check(bool(torch.isfinite(got).all()), f"K3 {label}: not finite")
         out["max_abs_err"] = max(out["max_abs_err"], err)
-        out["shapes"].append({"case": label, "segments": segments,
-                              "edges": edges, "cols": b, "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by})
+        out["shapes"].append(shape)
         del table, got, want
     out.update({key: out["shapes"][0][key] for key in (
-        "ms", "plain_ms", "bound_ms", "bound_by")})
+        "ms", "plain_ms", "bound_ms", "bound_by", "host_us", "device_ms",
+        "library_ms", "library_host_us", "library_device_ms")})
     return out
 
 
@@ -303,8 +379,19 @@ def gather_probes(dev, k3: dict) -> dict:
             torch.cuda.synchronize()
             check(torch.equal(got, rgm.row_gather_ref(table, src)),
                   f"row_gather {label} [{n}, {b}]: differs from index_select")
-            ms = cuda_ms(lambda: rgm.row_gather(table, src))
-            plain_ms = cuda_ms(lambda: rgm.row_gather_ref(table, src))
+
+            def kernel():
+                return rgm.row_gather(table, src)
+
+            def library():
+                return rgm.row_gather_ref(table, src)
+
+            ms = cuda_ms(kernel)
+            plain_ms = cuda_ms(library)
+            split = split_times(kernel, 1000, 1000)
+            lib = split_times(library, 1000, 1000)
+            split.update(library_host_us=lib["host_us"],
+                         library_device_ms=lib["device_ms"])
             err, plain = 0.0, "index_select"
             rows = int(torch.unique(src).numel())
             bound_ms, bound_by = bound(0.0, 4.0 * (rows * b + w + w * b))
@@ -324,8 +411,20 @@ def gather_probes(dev, k3: dict) -> dict:
             err, rel = float((got - want).abs().max()), rel_err(got, want)
             check(rel <= K3_TOL, f"K3 {label} accumulate: relative error "
                   f"{rel} > {K3_TOL}")
-            ms = cuda_ms(lambda: rgm.gather_segment_sum(table, src_s, ptr))
+            check(torch.equal(got, rgm.gather_segment_sum_ref(
+                table, src_s, ptr)), f"K3 {label} accumulate: differs from "
+                "the plain version")
+
+            def kernel():
+                return rgm.gather_segment_sum(table, src_s, ptr)
+
+            ms = cuda_ms(kernel)
             plain_ms = cuda_ms(plain_accum)
+            split = split_times(kernel, 1000, 1000)
+            split.update(library_times(
+                f"{label} accumulate", k3_library(table, src_s, ptr),
+                rgm.gather_segment_sum_ref(table, src_s, ptr), ms, split,
+                1000, 1000))
             plain = "index_select + index_add_"
             rows = int(torch.unique(src).numel())
             bound_ms, bound_by = bound(float(w) * b, 4.0 * (
@@ -334,17 +433,23 @@ def gather_probes(dev, k3: dict) -> dict:
               f"{ns_per_row(ms, w):.2f} ns/row ({ms:.4f} ms), {plain} "
               f"{ns_per_row(plain_ms, w):.2f} ns/row ({plain_ms:.4f} ms); "
               f"max abs err {err:.3e}; bound_ms {bound_ms:.4f} ({bound_by})")
+        print(f"[p1-p4] {label} {mode} table [{n}, {b}]: " + ", ".join(
+            f"{key} {value:.4f}" for key, value in split.items()
+            if key != "library_equal")
+            + " (host: 1000 un-synchronised calls; device: 1000 launches "
+            "in one CUDA graph)")
         shape = {"case": f"{label} {mode}", "table": [n, b], "rows": w,
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, "ns_per_row": ns_per_row(ms, w),
-                 "plain_ns_per_row": ns_per_row(plain_ms, w)}
+                 "plain_ns_per_row": ns_per_row(plain_ms, w), **split}
         if mode == "gather":
             out["shapes"].append(shape)
         else:
             k3["shapes"].append(shape)
             k3["max_abs_err"] = max(k3["max_abs_err"], err)
     out.update({key: out["shapes"][0][key] for key in (
-        "ms", "plain_ms", "bound_ms", "bound_by")})
+        "ms", "plain_ms", "bound_ms", "bound_by", "host_us", "device_ms",
+        "library_host_us", "library_device_ms")})
     return out
 
 
@@ -495,6 +600,19 @@ def dense_phase(dev, ds_a, ds_a_sparse, sources_50):
     return k1, k2
 
 
+def kernel_entry(line: str) -> str | None:
+    """The kernel a ptxas line names, with its template arguments read out
+    of the mangled name: (RT, mode) for ``dense_power.cu``, (load type,
+    lanes a destination, segments) for ``row_gather.cu``."""
+    entry = re.search(r"(ppr_\w+?_kernel)(?:I((?:6float4|f|Li\d+E|Lb\dE)+)E)?",
+                      line)
+    if not entry:
+        return None
+    args = [("float4" if a == "6float4" else "float" if a == "f" else a[2:-1])
+            for a in re.findall(r"6float4|f|Li\d+E|Lb\dE", entry[2] or "")]
+    return entry[1] + (f"<{', '.join(args)}>" if args else "")
+
+
 def profile_batch(algo, sources) -> None:
     """Trace one ``compute_topk_ids_batch``; print device time by aten
     operator, the kernels' span and the idle share inside it."""
@@ -527,7 +645,7 @@ def profile_batch(algo, sources) -> None:
           f"(idle {100 * (1 - busy_us / span_us):.1f}%), host wall "
           f"{wall_ms:.1f} ms; trace {path}")
     mine = [e["dur"] for e in events
-            if "ppr_gather_segment_sum_kernel" in e.get("name", "")]
+            if "ppr_gather_kernel" in e.get("name", "")]
     check(bool(mine), "the traced batch ran no K3")
     print(f"[profile] {'K3 gather_segment_sum':32s} {sum(mine) / 1e3:9.2f} ms "
           f"{100 * sum(mine) / busy_us:5.1f}% {len(mine):6d} launches "
@@ -812,8 +930,12 @@ def main() -> int:
     print(f"[card] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
-    # --- 2. build: one nvcc per source, started together -----------------
+    # --- 2. build: one nvcc per source, started together; K3's builds
+    # with parts switched off run beside them --------------------------------
     t0 = time.perf_counter()
+    import row_gather_ablation
+
+    ablation_procs = row_gather_ablation.start_builds()
     sources_cu = ("dense_power", "probe", "row_gather")
     with ThreadPoolExecutor(len(sources_cu)) as pool:
         list(pool.map(cuda_build.load_library, sources_cu))
@@ -823,17 +945,12 @@ def main() -> int:
         secs, log = cuda_build.BUILD_INFO[name]
         print(f"[build] {name}.cu: nvcc {secs:.2f} s")
         for line in log.splitlines():
-            # the mangled entry names hold the kernel and its template
-            # arguments: (RT, mode) (dense_power), the load type
-            # (row_gather)
-            entry = re.search(r"(ppr_\w+?_kernel)(?:ILi(\d)ELi(\d)E"
-                              r"|ILi(\d)E|I6?(\w+?)E)?", line)
+            entry = kernel_entry(line)
             if "entry function" in line and entry:
-                arg = (", ".join(entry.group(2, 3)) if entry[2]
-                       else entry[4] or entry[5])
-                print(f"[build] ptxas: {entry[1]}{f'<{arg}>' if arg else ''}")
+                print(f"[build] ptxas: {entry}")
             elif "registers" in line or "spill" in line:
                 print(f"[build] ptxas: {line.strip()}")
+    ablation_libs = row_gather_ablation.finish_builds(ablation_procs)
 
     # --- 3. K0, the toolchain probe -----------------------------------------
     probe.ensure(dev)
@@ -847,11 +964,19 @@ def main() -> int:
     k0 = {"max_abs_err": k0_err,
           "ms": cuda_ms(lambda: probe.double(x0)),
           "plain_ms": cuda_ms(lambda: probe.double_ref(x0)),
-          "bound_ms": k0_bound, "bound_by": k0_by}
+          "bound_ms": k0_bound, "bound_by": k0_by,
+          **split_times(lambda: probe.double(x0), 1000, 1000)}
     k0["library_ms"] = k0["plain_ms"]
+    lib = split_times(lambda: probe.double_ref(x0), 1000, 1000)
+    k0.update(library_host_us=lib["host_us"],
+              library_device_ms=lib["device_ms"])
     print(f"[k0] y = 2x on f32 {list(probe.SHAPE)}: equal bit for bit; "
           f"kernel {k0['ms']:.4f} ms, plain {k0['plain_ms']:.4f} ms "
-          f"(median of 10); bound_ms {k0_bound:.2e} ({k0_by})")
+          f"(median of 10, one call between events); host_us "
+          f"{k0['host_us']:.2f} vs x * 2.0 {k0['library_host_us']:.2f} "
+          f"(1000 un-synchronised calls); device_ms {k0['device_ms']:.5f} "
+          f"vs {k0['library_device_ms']:.5f} (1000 launches in one CUDA "
+          f"graph); bound_ms {k0_bound:.2e} ({k0_by})")
 
     # --- 4-5. K1 and K2 against their plain versions -------------------
     ds_a = load_default(device=dev)
@@ -877,6 +1002,11 @@ def main() -> int:
     grqc = load_dataset("synth:grqc", device=dev).graph
     k3 = k3_phase(dev, ds.graph, hs, grqc)
     rg = gather_probes(dev, k3)
+    table = torch.rand((ds.graph.n_pad, 2048), device=dev)
+    k3["ablation"] = row_gather_ablation.ablation(
+        ablation_libs, "bench tail", table, hs.tail_src, hs.tail_ptr,
+        flush=True, slabs=True)
+    del table, ablation_libs
 
     # --- launch counts: the serving path from here on --------------------
     reset_launches()
@@ -1014,6 +1144,10 @@ def main() -> int:
         "bound_ms": k0["bound_ms"],
         "bound_by": k0["bound_by"],
         "library_ms": k0["library_ms"],
+        "host_us": k0["host_us"],
+        "device_ms": k0["device_ms"],
+        "library_host_us": k0["library_host_us"],
+        "library_device_ms": k0["library_device_ms"],
         "shapes": [{"shape": list(probe.SHAPE), "ms": k0["ms"],
                     "plain_ms": k0["plain_ms"],
                     "bound_ms": k0["bound_ms"]}],
@@ -1029,8 +1163,13 @@ def main() -> int:
         "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
-        "library_ms": None,   # no one PyTorch call sums gathered rows
+        "library_ms": k3["library_ms"],   # embedding_bag in sum mode
+        "host_us": k3["host_us"],
+        "device_ms": k3["device_ms"],
+        "library_host_us": k3["library_host_us"],
+        "library_device_ms": k3["library_device_ms"],
         "shapes": k3["shapes"],
+        "ablation": k3["ablation"],
     }, {
         "name": "row_gather",
         "route": "cuda",
@@ -1047,6 +1186,10 @@ def main() -> int:
         "bound_ms": rg["bound_ms"],
         "bound_by": rg["bound_by"],
         "library_ms": rg["plain_ms"],   # its plain version: index_select
+        "host_us": rg["host_us"],
+        "device_ms": rg["device_ms"],
+        "library_host_us": rg["library_host_us"],
+        "library_device_ms": rg["library_device_ms"],
         "shapes": rg["shapes"],
     }]}))
     print(card)

@@ -106,11 +106,7 @@ def build(paths: dict[str, str]) -> dict[str, ctypes.CDLL]:
                   if "spill" in line and not line.strip().startswith("0 ")}
         print(f"[build] {name}: ok", *sorted(spills), sep="; ")
         lib = ctypes.CDLL(so)
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ppr_dense_power_iterations.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, cf, cf, ci, vp]
-        lib.ppr_dense_pagerank_iterations.argtypes = [
-            vp, vp, vp, ci, ci, ci, cf, cf, vp]
+        cuda_build.bind(lib, "dense_power")
         libs[name] = lib
     return libs
 

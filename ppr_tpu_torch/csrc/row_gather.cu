@@ -1,5 +1,5 @@
 // K3 and the row-gather probes P1-P4: row gathers from a node-major table
-// f32 [n_rows, cols] with int32 row indices.
+// f32 [n_rows, cols] with int32 row indices, as one device template.
 //
 // ppr_gather_segment_sum (K3) replaces the gather_accum mode of
 // scripts/bench_pallas_row_gather.py::make (P4), `out[dst[i]] += table[src[i]]`,
@@ -16,23 +16,70 @@
 //
 // ppr_row_gather replaces P1, P2 and P3 (scripts/probe_mosaic_gather.py:
 // vmem_axis0_gather, vmem_dynamic_row_loop, hbm_indexed_row_dma) and the
-// gather mode of P4: out[i, :] = table[idx[i], :]. The three TPU probes
-// differ only in the TPU mechanism (a vector gather from VMEM, a scalar
-// loop, a per-row DMA from HBM); on Hopper the table sits in device memory
-// and its rows come through L2, so one kernel is the counterpart of all.
+// gather mode of P4: out[i, :] = table[idx[i], :]. It is K3 with unit
+// segments: the same template with the row pointer compiled out (segment i
+// is edge i, and the one row is copied, not added to zero).
 //
-// What bounds both on an H100: bytes. Each index moves one cols-wide row
-// (a random row read, whose cost is its DRAM or L2 transaction), and each
-// output row is written once. The design keeps the reads coalesced and
-// wide and writes nothing else: one warp owns one output row and one tile
-// of columns; every lane reads the row's index (one broadcast load), then
-// its own 16-byte slice of the table row (float4, 128 columns a warp) when
-// cols % 4 == 0 and both base pointers are 16-byte aligned, else one float
-// (32 columns a warp). K3 loads kUnroll edges' rows before it adds them, so
-// several row reads are in flight per warp, and adds them in edge order.
-// No shared memory, no atomics: the result has the same bits every run.
-// Several warps share a block, on consecutive output rows. Row offsets are
-// 64-bit (src * cols passes 2^31 at a million nodes and cols 2048).
+// What bounds both on an H100: bytes, and for K3 the bytes L2 can deliver.
+// The bound counts each table row once, but a pull gather reads a row once
+// per edge that names it (4.9 times on average at the benchmark's tail:
+// 2.65 GB of row reads for 0.54 GB of table), and nothing ties an edge's
+// source to the SM that needs it, so every one of those reads comes from
+// L2. What the design can do is make them all hit there, and keep enough
+// of them in flight:
+//
+// * Column slabs. The caller (ops/row_gather.py::make_plan) cuts the columns
+//   into tiles so that the rows a tile can read, n_rows x tile x 4 bytes,
+//   take about a third of the 50 MB L2 (64 columns at the benchmark's
+//   65,664 rows; 128, a warp's 32 loads, where the table is small), and the
+//   grid is tile-major (blockIdx.y, the slow dimension, is the tile): the
+//   blocks that run together read one slab, so a re-read finds its row in
+//   L2. At the benchmark's tail: 64 columns 0.531 ms, 32 0.558, 128 0.603.
+// * Tiles and lanes. A tile is L lanes x one load each (L = 8, 16 or 32; a
+//   load is 16 bytes when cols % 4 == 0 and both bases are 16-byte aligned,
+//   else one float). A warp takes 32 / L consecutive destinations of one
+//   tile, so at a 64-column tile it reads two rows' 256-byte slices: whole
+//   128-byte lines. A segment is never split across warps, and its rows
+//   are added in edge order: no shared memory, no atomics, the same bits
+//   every launch and the plain version's bits.
+// * Few registers, small blocks. The card delivers the most when the most
+//   warps are resident and a block does not wait long for its longest
+//   segment: rounds of 2 rows of 16-byte loads (28 registers, 64 warps an
+//   SM) and 4 warps a block. More rows in flight a lane lost: rounds of 4
+//   0.568 ms, of 8 0.733 (38 and 64 registers); 8 warps a block 0.548, 16
+//   0.595. Where a load is one float a row costs one register, and those
+//   shapes (the protocol's B 50, with unsplit segments of hundreds of
+//   edges) wait for their longest segment: rounds of 8 there (0.0135 ms
+//   against 0.0281 with rounds of 2 at the ca-GrQc-scale graph).
+// * Cache policy. Table rows, indices and row pointers are loaded with an
+//   L2 evict_last policy (createpolicy + ld.global.nc.L2::cache_hint), the
+//   output is stored streaming (st.global.cs), so the written slab does not
+//   push the read slab out: 0.531 against 0.543 ms without.
+//
+// Measured slower and not kept, and no longer in this source: one wave of
+// persistent blocks walking (tile, group) items with a stride, with or
+// without loading the next item's bounds ahead (0.853 ms: the hardware's
+// block scheduler balances the power-law segments better and costs no
+// registers); rows through the copy engine (cp.async.bulk of each 256-byte
+// slice into a ring in shared memory, completion on an mbarrier: 1.084 ms,
+// ten million small copies a launch). With every row read hitting L2 the
+// kernel runs at the rate it has on a table that lies in L2 whole (B 64:
+// 0.0162 ms x 32 slabs = 0.52 ms), 6.0 TB/s of row reads and output: L2's
+// delivery is the ceiling, not device memory.
+// (NVIDIA H100 80GB HBM3 at 700 W; row_gather_ablation.py, CUDA-graph
+// replays with L2 flushed between launches; the parent's kernel, a warp a
+// destination and 128 columns, 8 warps a block, rounds of 4: 0.634 ms.)
+//
+// Row offsets are 64-bit (src * cols passes 2^31 at a million nodes and cols
+// 2048); edge and segment counts are below 2^31. The C functions keep no
+// state between launches, do not synchronise and allocate nothing.
+//
+// Build switches, for row_gather_ablation.py only (each times what a part
+// costs; the package never sets one): PPR_K3_NO_POLICY (plain __ldg loads
+// and stores), PPR_K3_NO_STORE (no output written: a wrong answer),
+// PPR_K3_SRC_IS_DST (every edge reads its own destination's row: a pure
+// stream, a wrong answer), PPR_K3_UNROLL, PPR_K3_UNROLL_SCALAR and
+// PPR_K3_WARPS (rows a round for 16-byte and 4-byte loads, warps a block).
 
 #include <cuda_runtime.h>
 
@@ -41,10 +88,25 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+#ifndef PPR_K3_WARPS
+#define PPR_K3_WARPS 4            // warps a block
+#endif
+constexpr int kWarpsPerBlock = PPR_K3_WARPS;
 constexpr int kThreads = kWarpsPerBlock * 32;
-constexpr int kUnroll = 4;
-constexpr unsigned kMaxColTiles = 65535;   // gridDim.y limit
+#ifndef PPR_K3_UNROLL
+#define PPR_K3_UNROLL 2           // rows a round (row loads in flight a lane)
+#endif
+#ifndef PPR_K3_UNROLL_SCALAR
+#define PPR_K3_UNROLL_SCALAR 8    // the same where a load is one float
+#endif
+// Rows a round: a 16-byte row costs four registers, and at the wide shapes
+// that take those loads residency wins; a 4-byte row costs one, and the
+// narrow shapes that take those (the protocol's B 50, unsplit power-law
+// segments of hundreds of edges) are bound by their longest segment.
+template <typename T>
+constexpr int kUnrollOf =
+    sizeof(T) == sizeof(float) ? PPR_K3_UNROLL_SCALAR : PPR_K3_UNROLL;
+constexpr long long kMaxColTiles = 65535;   // gridDim.y limit
 
 __device__ __forceinline__ void add_to(float& acc, float v) { acc += v; }
 
@@ -64,69 +126,196 @@ __device__ __forceinline__ float4 zero<float4>() {
   return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
-// T is float (one column a lane) or float4 (four columns a lane).
-template <typename T>
-__global__ void ppr_gather_segment_sum_kernel(
+#ifdef PPR_K3_NO_STORE
+__device__ __forceinline__ float first_of(float v) { return v; }
+__device__ __forceinline__ float first_of(const float4& v) { return v.x; }
+#endif
+
+// The L2 policy of everything that is read again: keep it.
+__device__ __forceinline__ uint64_t keep_policy() {
+  uint64_t policy = 0;
+#ifndef PPR_K3_NO_POLICY
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(policy));
+#endif
+  return policy;
+}
+
+#ifdef PPR_K3_NO_POLICY
+template <typename V>
+__device__ __forceinline__ V ld_keep(const V* p, uint64_t) { return __ldg(p); }
+template <typename V>
+__device__ __forceinline__ void st_stream(V* p, const V& v) { *p = v; }
+#else
+__device__ __forceinline__ float ld_keep(const float* p, uint64_t policy) {
+  float v;
+  asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;"
+      : "=f"(v) : "l"(p), "l"(policy));
+  return v;
+}
+__device__ __forceinline__ float4 ld_keep(const float4* p, uint64_t policy) {
+  float4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p), "l"(policy));
+  return v;
+}
+__device__ __forceinline__ int ld_keep(const int* p, uint64_t policy) {
+  int v;
+  asm("ld.global.nc.L2::cache_hint.s32 %0, [%1], %2;"
+      : "=r"(v) : "l"(p), "l"(policy));
+  return v;
+}
+__device__ __forceinline__ long long ld_keep(const long long* p,
+                                             uint64_t policy) {
+  long long v;
+  asm("ld.global.nc.L2::cache_hint.s64 %0, [%1], %2;"
+      : "=l"(v) : "l"(p), "l"(policy));
+  return v;
+}
+template <typename V>
+__device__ __forceinline__ void st_stream(V* p, const V& v) { __stcs(p, v); }
+#endif
+
+// One destination's share of one tile: the rows of segment [lo, hi) of
+// `src`, columns [col, col + width) of each, added in edge order and stored
+// to out[d]. Full rounds of kUnroll rows, then one round that holds what is
+// left, so every row of a round is in flight before the first is added.
+template <typename T, bool kSegments>
+__device__ __forceinline__ void gather_one(
     const float* __restrict__ table, const int* __restrict__ src,
-    const long long* __restrict__ ptr, float* __restrict__ out, int n_out,
-    int cols) {
-  constexpr int kWidth = sizeof(T) / sizeof(float);
-  const int lane = threadIdx.x & 31;
-  const int d = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int col = (blockIdx.y * 32 + lane) * kWidth;
-  if (d >= n_out || col >= cols) return;   // no warp-wide operation follows
-  const long long lo = ptr[d];
-  const long long hi = ptr[d + 1];
+    const long long* __restrict__ ptr, float* __restrict__ out, unsigned d,
+    int col, int cols, uint64_t keep) {
+  constexpr int kUnroll = kUnrollOf<T>;
   const float* base = table + col;
-  T acc = zero<T>();
-  long long e = lo;
-  for (; e + kUnroll <= hi; e += kUnroll) {
-    T v[kUnroll];
+  T acc;
+  if constexpr (kSegments) {
+    int e = static_cast<int>(ld_keep(ptr + d, keep));
+    const int hi = static_cast<int>(ld_keep(ptr + d + 1, keep));
+    acc = zero<T>();
+    auto row = [&](int at) {
+#ifdef PPR_K3_SRC_IS_DST
+      const int s = static_cast<int>(d);
+#else
+      const int s = ld_keep(src + at, keep);
+#endif
+      return reinterpret_cast<const T*>(base + static_cast<size_t>(s) * cols);
+    };
+    for (; e + kUnroll <= hi; e += kUnroll) {
+      const T* rows[kUnroll];
+      T v[kUnroll];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const size_t row = static_cast<size_t>(src[e + u]) * cols;
-      v[u] = __ldg(reinterpret_cast<const T*>(base + row));
+      for (int u = 0; u < kUnroll; ++u) rows[u] = row(e + u);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) v[u] = ld_keep(rows[u], keep);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) add_to(acc, v[u]);
     }
+    if constexpr (kUnroll > 1) {
+      if (e < hi) {
+        const int n = hi - e;
+        const T* rows[kUnroll - 1];
+        T v[kUnroll - 1];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) add_to(acc, v[u]);
+        for (int u = 0; u < kUnroll - 1; ++u) {
+          if (u < n) rows[u] = row(e + u);
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll - 1; ++u) {
+          if (u < n) v[u] = ld_keep(rows[u], keep);
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll - 1; ++u) {
+          if (u < n) add_to(acc, v[u]);
+        }
+      }
+    }
+  } else {
+    // the one row is copied, not added to zero: -0.0 stays -0.0
+    acc = ld_keep(reinterpret_cast<const T*>(
+                      base + static_cast<size_t>(ld_keep(src + d, keep)) * cols),
+                  keep);
   }
-  for (; e < hi; ++e) {
-    const size_t row = static_cast<size_t>(src[e]) * cols;
-    add_to(acc, __ldg(reinterpret_cast<const T*>(base + row)));
-  }
-  *reinterpret_cast<T*>(out + static_cast<size_t>(d) * cols + col) = acc;
+  T* dst = reinterpret_cast<T*>(out + static_cast<size_t>(d) * cols + col);
+#ifdef PPR_K3_NO_STORE
+  if (first_of(acc) == -1.0f) st_stream(dst, acc);
+#else
+  st_stream(dst, acc);
+#endif
 }
 
-template <typename T>
-__global__ void ppr_row_gather_kernel(const float* __restrict__ table,
-                                      const int* __restrict__ idx,
-                                      float* __restrict__ out, int rows,
-                                      int cols) {
+// T is float (one column a lane) or float4 (four); L lanes share a
+// destination, so a warp takes 32 / L consecutive destinations (a group) of
+// one tile of L loads; kSegments false compiles ptr out (unit segments).
+// blockIdx.y, the slow dimension, is the tile: the grid is tile-major.
+template <typename T, int L, bool kSegments>
+__global__ void __launch_bounds__(kThreads)
+ppr_gather_kernel(const float* __restrict__ table, const int* __restrict__ src,
+                  const long long* __restrict__ ptr, float* __restrict__ out,
+                  int n_out, int cols) {
   constexpr int kWidth = sizeof(T) / sizeof(float);
+  constexpr int G = 32 / L;
   const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int col = (blockIdx.y * 32 + lane) * kWidth;
-  if (i >= rows || col >= cols) return;
-  const size_t row = static_cast<size_t>(idx[i]) * cols;
-  *reinterpret_cast<T*>(out + static_cast<size_t>(i) * cols + col) =
-      __ldg(reinterpret_cast<const T*>(table + row + col));
+  const unsigned group = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const unsigned d = group * G + lane / L;
+  const int col = static_cast<int>(blockIdx.y) * (L * kWidth) +
+                  (lane % L) * kWidth;
+  if (d < static_cast<unsigned>(n_out) && col < cols) {
+    gather_one<T, kSegments>(table, src, ptr, out, d, col, cols,
+                             keep_policy());
+  }
 }
 
-bool use_float4(const float* table, const float* out, int cols) {
-  return cols % 4 == 0 &&
-         (reinterpret_cast<uintptr_t>(table) % 16) == 0 &&
-         (reinterpret_cast<uintptr_t>(out) % 16) == 0;
+using Kernel = void (*)(const float*, const int*, const long long*, float*,
+                        int, int);
+
+// The kernel of a layout: `width` floats a load, `lanes` lanes a destination.
+template <bool kSegments>
+Kernel kernel_for(int width, int lanes) {
+  if (width == 4) {
+    switch (lanes) {
+      case 8: return ppr_gather_kernel<float4, 8, kSegments>;
+      case 16: return ppr_gather_kernel<float4, 16, kSegments>;
+      case 32: return ppr_gather_kernel<float4, 32, kSegments>;
+    }
+  } else if (width == 1) {
+    switch (lanes) {
+      case 8: return ppr_gather_kernel<float, 8, kSegments>;
+      case 16: return ppr_gather_kernel<float, 16, kSegments>;
+      case 32: return ppr_gather_kernel<float, 32, kSegments>;
+    }
+  }
+  return nullptr;
 }
 
-// The launch grid: x over output rows (kWarpsPerBlock a block), y over
-// column tiles of 32 lanes * width. 0 tiles means the shape is refused.
-dim3 grid_for(int rows, int cols, bool vec4) {
-  const unsigned per_warp = vec4 ? 128u : 32u;
-  const unsigned tiles = (static_cast<unsigned>(cols) + per_warp - 1) / per_warp;
-  if (tiles > kMaxColTiles) return dim3(0, 0);
-  return dim3((static_cast<unsigned>(rows) + kWarpsPerBlock - 1) /
-                  kWarpsPerBlock,
-              tiles);
+// One launch of either function: `width` floats a load (4 needs cols % 4
+// == 0 and 16-byte-aligned bases), `lanes` lanes a destination, so a tile
+// is width * lanes columns.
+int launch(bool segments, const float* table, const int* src,
+           const long long* ptr, float* out, int n_out, int cols, int width,
+           int lanes, void* stream) {
+  const Kernel kernel = segments ? kernel_for<true>(width, lanes)
+                                 : kernel_for<false>(width, lanes);
+  if (n_out <= 0 || cols <= 0 || kernel == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (width == 4 && (cols % 4 != 0 ||
+                     reinterpret_cast<uintptr_t>(table) % 16 != 0 ||
+                     reinterpret_cast<uintptr_t>(out) % 16 != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int tile_cols = width * lanes;
+  const long long tiles = (static_cast<long long>(cols) + tile_cols - 1) /
+                          tile_cols;
+  const long long groups = (static_cast<long long>(n_out) + 32 / lanes - 1) /
+                           (32 / lanes);
+  if (tiles > kMaxColTiles) return (int)cudaErrorInvalidValue;
+  const dim3 grid(
+      static_cast<unsigned>((groups + kWarpsPerBlock - 1) / kWarpsPerBlock),
+      static_cast<unsigned>(tiles));
+  kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      table, src, ptr, out, n_out, cols);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -134,42 +323,20 @@ dim3 grid_for(int rows, int cols, bool vec4) {
 extern "C" {
 
 // K3 on `stream`: out [n_out, cols] from table [*, cols], src [ptr[n_out]],
-// ptr [n_out + 1]. Returns cudaGetLastError() (0 on success).
+// ptr [n_out + 1], in the layout of `launch`. Returns cudaGetLastError()
+// (0 on success).
 int ppr_gather_segment_sum(const float* table, const int* src,
                            const long long* ptr, float* out, int n_out,
-                           int cols, void* stream) {
-  if (n_out <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
-  const bool vec4 = use_float4(table, out, cols);
-  const dim3 grid = grid_for(n_out, cols, vec4);
-  if (grid.x == 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (vec4) {
-    ppr_gather_segment_sum_kernel<float4><<<grid, kThreads, 0, s>>>(
-        table, src, ptr, out, n_out, cols);
-  } else {
-    ppr_gather_segment_sum_kernel<float><<<grid, kThreads, 0, s>>>(
-        table, src, ptr, out, n_out, cols);
-  }
-  return (int)cudaGetLastError();
+                           int cols, int width, int lanes, void* stream) {
+  return launch(true, table, src, ptr, out, n_out, cols, width, lanes, stream);
 }
 
-// P1-P4 gather on `stream`: out [rows, cols] = table[idx[0..rows), :].
-// Returns cudaGetLastError() (0 on success).
+// P1-P4 gather on `stream`: out [rows, cols] = table[idx[0..rows), :], in
+// the layout of `launch`. Returns cudaGetLastError() (0 on success).
 int ppr_row_gather(const float* table, const int* idx, float* out, int rows,
-                   int cols, void* stream) {
-  if (rows <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
-  const bool vec4 = use_float4(table, out, cols);
-  const dim3 grid = grid_for(rows, cols, vec4);
-  if (grid.x == 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (vec4) {
-    ppr_row_gather_kernel<float4><<<grid, kThreads, 0, s>>>(table, idx, out,
-                                                            rows, cols);
-  } else {
-    ppr_row_gather_kernel<float><<<grid, kThreads, 0, s>>>(table, idx, out,
-                                                           rows, cols);
-  }
-  return (int)cudaGetLastError();
+                   int cols, int width, int lanes, void* stream) {
+  return launch(false, table, idx, nullptr, out, rows, cols, width, lanes,
+                stream);
 }
 
 const char* ppr_cuda_error_string(int code) {

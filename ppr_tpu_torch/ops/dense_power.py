@@ -29,8 +29,6 @@ runs its canary), then launches its kernel or raises.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..device import set_exact_f32_matmul
@@ -111,18 +109,6 @@ def _kernel_operands(g: Graph, src_onehot: torch.Tensor, what: str):
     return w, n
 
 
-def _load(symbol: str, argtypes):
-    lib = cuda_build.load_library("dense_power")
-    fn = getattr(lib, symbol)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib, fn
-
-
-_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
 def dense_power_iterations(g: Graph, src_onehot: torch.Tensor, alpha: float,
                            iters: int, *, dangling_to_source: bool = True
                            ) -> torch.Tensor:
@@ -138,16 +124,18 @@ def dense_power_iterations(g: Graph, src_onehot: torch.Tensor, alpha: float,
     out = torch.empty_like(src_onehot)
     if b == 0:
         return out
-    probe.ensure(src_onehot.device)
+    index = src_onehot.get_device()
+    if index not in probe.probed:
+        probe.ensure(src_onehot.device)
     dang = _dangling_mask(g).contiguous()
-    lib, fn = _load("ppr_dense_power_iterations",
-                    [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CF, _CF, _CI, _VP])
-    with torch.cuda.device(src_onehot.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(w.data_ptr(), src_onehot.data_ptr(), dang.data_ptr(),
-                out.data_ptr(), b, n, int(iters), float(alpha),
-                1.0 - float(alpha), int(dangling_to_source), stream)
-    cuda_build.check(lib, rc, "dense_power_iterations")
+    rc = cuda_build.call(
+        cuda_build.function("ppr_dense_power_iterations"), index,
+        w.data_ptr(), src_onehot.data_ptr(), dang.data_ptr(), out.data_ptr(),
+        b, n, int(iters), float(alpha), 1.0 - float(alpha),
+        int(dangling_to_source))
+    if rc:
+        cuda_build.check("ppr_dense_power_iterations", rc,
+                         "dense_power_iterations")
     launches += 1
     return out
 
@@ -167,13 +155,15 @@ def dense_pagerank_iterations(g: Graph, src_onehot: torch.Tensor,
     out = torch.empty_like(src_onehot)
     if b == 0:
         return out
-    probe.ensure(src_onehot.device)
-    lib, fn = _load("ppr_dense_pagerank_iterations",
-                    [_VP, _VP, _VP, _CI, _CI, _CI, _CF, _CF, _VP])
-    with torch.cuda.device(src_onehot.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(w.data_ptr(), src_onehot.data_ptr(), out.data_ptr(), b, n,
-                int(iters), float(damping), 1.0 - float(damping), stream)
-    cuda_build.check(lib, rc, "dense_pagerank_iterations")
+    index = src_onehot.get_device()
+    if index not in probe.probed:
+        probe.ensure(src_onehot.device)
+    rc = cuda_build.call(
+        cuda_build.function("ppr_dense_pagerank_iterations"), index,
+        w.data_ptr(), src_onehot.data_ptr(), out.data_ptr(), b, n,
+        int(iters), float(damping), 1.0 - float(damping))
+    if rc:
+        cuda_build.check("ppr_dense_pagerank_iterations", rc,
+                         "dense_pagerank_iterations")
     pagerank_launches += 1
     return out

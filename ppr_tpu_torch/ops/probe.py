@@ -8,13 +8,19 @@ keeps the probe and none of its TPU machinery (the subprocess, the timeout,
 the disk cache, the ``PPR_TPU_PALLAS`` switch): :func:`ensure` builds
 ``csrc/probe.cu``, launches it once per process and card on a tensor of
 ones, and checks that the result is exactly 2. ``ops/dense_power.py`` calls
-it before its first K1 or K2 launch. The probe never turns a kernel off:
-any failure raises, with nvcc's output or the CUDA error.
+it before its first K1 or K2 launch, ``ops/row_gather.py`` before its
+first launch. The probe never turns a kernel off: any failure raises, with
+nvcc's output or the CUDA error.
+
+A wrapper's test for "this card is probed" is one set lookup (``index in
+probed``); only a card that is not yet probed reaches :func:`ensure`, which
+waits for the card. Once a card is probed, :func:`double` and every other
+wrapper of the port launch on the current stream without synchronising and
+allocate only through ``torch.empty``, so they can be captured in a CUDA
+graph.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -25,7 +31,7 @@ SHAPE = (8, 128)
 #: kernel launches in this process (reset() zeroes it)
 launches = 0
 #: indices of the cards probed since the last reset()
-_probed: set[int] = set()
+probed: set[int] = set()
 
 
 def double_ref(x: torch.Tensor) -> torch.Tensor:
@@ -43,22 +49,17 @@ def double(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("x must be contiguous f32")
-    if x.numel() >= 2**31:
-        raise ValueError(f"x has {x.numel()} elements; the kernel takes "
-                         "fewer than 2^31")
+    n = x.numel()
+    if n >= 2**31:
+        raise ValueError(f"x has {n} elements; the kernel takes fewer than "
+                         "2^31")
     out = torch.empty_like(x)
-    if x.numel() == 0:
+    if n == 0:
         return out
-    lib = cuda_build.load_library("probe")
-    fn = lib.ppr_probe_double
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), out.data_ptr(), x.numel(), stream)
-    cuda_build.check(lib, rc, "probe")
+    rc = cuda_build.call(cuda_build.function("ppr_probe_double"),
+                         x.get_device(), x.data_ptr(), out.data_ptr(), n)
+    if rc:
+        cuda_build.check("ppr_probe_double", rc, "probe")
     launches += 1
     return out
 
@@ -70,7 +71,7 @@ def ensure(device: torch.device) -> None:
     device = torch.device(device)
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    if index in _probed:
+    if index in probed:
         return
     x = torch.ones(SHAPE, dtype=torch.float32, device=device)
     y = double(x)
@@ -78,7 +79,7 @@ def ensure(device: torch.device) -> None:
     if not torch.equal(y, torch.full_like(x, 2.0)):
         raise RuntimeError(f"CUDA probe on {device}: 2 * 1 gave "
                            f"{y.unique().tolist()}")
-    _probed.add(index)
+    probed.add(index)
 
 
 def reset() -> None:
@@ -88,4 +89,4 @@ def reset() -> None:
     probe that path depends on. The runtime never needs a second probe."""
     global launches
     launches = 0
-    _probed.clear()
+    probed.clear()

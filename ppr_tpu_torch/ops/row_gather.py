@@ -14,17 +14,34 @@ push, as one CUDA source (``csrc/row_gather.cu``).
   probes were on the TPU, it is a microbenchmark and on no serving or
   protocol path: ``chip_smoke.py`` times it as the gather ceiling of K3.
 
+The two are one device template: ``row_gather`` is K3 with unit segments
+(segment ``i`` is edge ``i``, the row pointer compiled out).
+
+The kernel is laid out around the card's L2 (the source's note has the
+design), and this module decides the layout, in plain Python that runs on
+any machine: :func:`slab_cols` gives the widest column slab whose rows,
+``n_rows x slab x 4`` bytes, take about a third of L2 (the whole width
+where the table is small), and :func:`make_plan` makes the slab the
+kernel's column tile: 8, 16 or 32 lanes a destination, one 16-byte or
+4-byte load each (a slab wider than a warp's 32 loads is cut into tiles of
+32). The grid is tile-major, so the blocks that run together read one slab
+and every re-read of a row finds it in L2.
+
 ``*_ref`` are the plain PyTorch versions (``index_select``, then
 ``segment_reduce`` for K3). A wrapper runs its plain version only for a
 tensor that lies on the CPU; for a CUDA tensor it runs the toolchain probe
 K0 once (``ops/probe.py``), then launches its kernel or raises. The kernels
 trust their indices: every index must lie in ``[0, table.shape[0])`` and
 ``ptr`` must be non-decreasing from 0 to at most ``src.shape[0]``.
+
+Once the card is probed (at the first launch), a wrapper launches on the
+current stream, does not synchronise and allocates only its output through
+``torch.empty``: it can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
-import ctypes
+import dataclasses
 
 import torch
 
@@ -35,8 +52,58 @@ segment_sum_launches = 0
 #: row_gather launches in this process
 gather_launches = 0
 
-#: widest column count the launch grid takes (65535 tiles of 32 columns)
+#: widest column count the kernels take
 MAX_COLS = 65535 * 32
+#: the H100's L2, and the share of it that a slab's rows may take: the rest
+#: is room for the output and the indices that stream through
+L2_BYTES = 50 * 2**20
+SLAB_SHARE = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The layout of one launch: ``width`` floats a load (4 or 1) and
+    ``lanes`` lanes a destination (a warp takes ``32 // lanes``
+    destinations). A tile is ``width * lanes`` columns, and the kernel
+    walks ``for tile, for group of destinations``: a tile is a slab."""
+    width: int
+    lanes: int
+
+    @property
+    def tile_cols(self) -> int:
+        return self.width * self.lanes
+
+    def tiles(self, cols: int) -> int:
+        return -(-cols // self.tile_cols)
+
+
+def slab_cols(n_rows: int, cols: int) -> int:
+    """The slab width for a ``[n_rows, cols]`` f32 table: ``cols`` when the
+    whole table takes at most ``L2_BYTES / SLAB_SHARE``, else the largest
+    of 32, 64, 128, ... columns whose ``n_rows`` rows do (32, one 128-byte
+    line a row, at the least)."""
+    budget = L2_BYTES // SLAB_SHARE
+    if n_rows * cols * 4 <= budget:
+        return cols
+    slab = 32
+    while 2 * slab < cols and n_rows * 2 * slab * 4 <= budget:
+        slab *= 2
+    return slab
+
+
+def make_plan(n_rows: int, cols: int, aligned: bool,
+              slab: int | None = None) -> Plan:
+    """The layout for a ``[n_rows, cols]`` table; ``aligned`` says that the
+    table's and the output's bases are 16-byte aligned. A tile is the slab
+    or, where the slab is wider than a warp's 32 loads (a small table), 32
+    loads of it. ``slab`` overrides :func:`slab_cols`
+    (``row_gather_ablation.py`` times other widths)."""
+    width = 4 if aligned and cols % 4 == 0 else 1
+    if slab is None:
+        slab = slab_cols(n_rows, cols)
+    span = min(slab, cols)
+    lanes = 8 if span <= 8 * width else 16 if span <= 16 * width else 32
+    return Plan(width, lanes)
 
 
 def gather_segment_sum_ref(table: torch.Tensor, src: torch.Tensor,
@@ -51,35 +118,56 @@ def row_gather_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, idx)
 
 
-def _check(table: torch.Tensor, index: torch.Tensor, what: str) -> int:
-    """Raise unless the kernels take these operands; returns the column
-    count."""
+def _launch(symbol: str, what: str, table: torch.Tensor,
+            index: torch.Tensor, ptr: torch.Tensor | None) -> torch.Tensor:
+    """Check the operands, allocate the output and launch ``symbol``: K3
+    with a row pointer, the unit-segment gather without."""
     if not table.is_cuda:
         raise ValueError(f"unsupported device {table.device}")
     if table.dtype != torch.float32 or table.dim() != 2 \
             or not table.is_contiguous():
         raise ValueError(f"{what}: table must be a contiguous f32 matrix")
+    card = table.get_device()
     if index.dtype != torch.int32 or index.dim() != 1 \
-            or not index.is_contiguous() or index.device != table.device:
+            or not index.is_contiguous() or index.get_device() != card:
         raise ValueError(f"{what}: indices must be contiguous int32 [m] on "
                          f"{table.device}")
-    cols = table.shape[1]
+    n_rows, cols = table.shape
+    if index.shape[0] >= 2**31:
+        raise ValueError(f"{what}: {index.shape[0]} indices; the kernel "
+                         "takes fewer than 2^31")
     if cols > MAX_COLS:
         raise ValueError(f"{what}: {cols} columns; the kernel takes at most "
                          f"{MAX_COLS}")
-    return cols
-
-
-_VP, _CI = ctypes.c_void_p, ctypes.c_int
-
-
-def _load(symbol: str, argtypes):
-    lib = cuda_build.load_library("row_gather")
-    fn = getattr(lib, symbol)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib, fn
+    if ptr is None:
+        n_out = index.shape[0]
+    else:
+        if ptr.dtype != torch.int64 or ptr.dim() != 1 or ptr.shape[0] < 1 \
+                or not ptr.is_contiguous() or ptr.get_device() != card:
+            raise ValueError(f"{what}: ptr must be contiguous int64 "
+                             f"[n_out + 1] on {table.device}")
+        n_out = ptr.shape[0] - 1
+    if n_out >= 2**31:
+        raise ValueError(f"{what}: {n_out} output rows; the kernel takes "
+                         "fewer than 2^31")
+    out = torch.empty((n_out, cols), dtype=torch.float32, device=table.device)
+    if n_out == 0 or cols == 0:
+        return out
+    if card not in probe.probed:
+        probe.ensure(table.device)
+    table_at, out_at = table.data_ptr(), out.data_ptr()
+    plan = make_plan(n_rows, cols, (table_at | out_at) % 16 == 0)
+    fn = cuda_build.function(symbol)
+    if ptr is not None:
+        rc = cuda_build.call(fn, card, table_at, index.data_ptr(),
+                             ptr.data_ptr(), out_at, n_out, cols, plan.width,
+                             plan.lanes)
+    else:
+        rc = cuda_build.call(fn, card, table_at, index.data_ptr(), out_at,
+                             n_out, cols, plan.width, plan.lanes)
+    if rc:
+        cuda_build.check(symbol, rc, what)
+    return out
 
 
 def gather_segment_sum(table: torch.Tensor, src: torch.Tensor,
@@ -88,28 +176,13 @@ def gather_segment_sum(table: torch.Tensor, src: torch.Tensor,
     global segment_sum_launches
     if table.device.type == "cpu":
         return gather_segment_sum_ref(table, src, ptr)
-    cols = _check(table, src, "gather_segment_sum")
-    if ptr.dtype != torch.int64 or ptr.dim() != 1 or ptr.shape[0] < 1 \
-            or not ptr.is_contiguous() or ptr.device != table.device:
+    if ptr is None:
         raise ValueError("gather_segment_sum: ptr must be contiguous int64 "
-                         f"[n_out + 1] on {table.device}")
-    n_out = ptr.shape[0] - 1
-    if n_out >= 2**31:
-        raise ValueError(f"gather_segment_sum: {n_out} segments; the kernel "
-                         "takes fewer than 2^31")
-    out = torch.empty((n_out, cols), dtype=torch.float32,
-                      device=table.device)
-    if n_out == 0 or cols == 0:
-        return out
-    probe.ensure(table.device)
-    lib, fn = _load("ppr_gather_segment_sum",
-                    [_VP, _VP, _VP, _VP, _CI, _CI, _VP])
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(table.data_ptr(), src.data_ptr(), ptr.data_ptr(),
-                out.data_ptr(), n_out, cols, stream)
-    cuda_build.check(lib, rc, "gather_segment_sum")
-    segment_sum_launches += 1
+                         "[n_out + 1]")
+    out = _launch("ppr_gather_segment_sum", "gather_segment_sum", table, src,
+                  ptr)
+    if out.numel():
+        segment_sum_launches += 1
     return out
 
 
@@ -118,20 +191,7 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     global gather_launches
     if table.device.type == "cpu":
         return row_gather_ref(table, idx)
-    cols = _check(table, idx, "row_gather")
-    rows = idx.shape[0]
-    if rows >= 2**31:
-        raise ValueError(f"row_gather: {rows} indices; the kernel takes "
-                         "fewer than 2^31")
-    out = torch.empty((rows, cols), dtype=torch.float32, device=table.device)
-    if rows == 0 or cols == 0:
-        return out
-    probe.ensure(table.device)
-    lib, fn = _load("ppr_row_gather", [_VP, _VP, _VP, _CI, _CI, _VP])
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, cols,
-                stream)
-    cuda_build.check(lib, rc, "row_gather")
-    gather_launches += 1
+    out = _launch("ppr_row_gather", "row_gather", table, idx, None)
+    if out.numel():
+        gather_launches += 1
     return out

@@ -8,8 +8,8 @@ port's dependencies:
 Tolerances: K1, K2 and the hub product sum in another order than the plain
 versions (2e-5 after 100 or 300 rounds, the JAX package's kernel-vs-XLA
 bound; 1e-5 for one product); K3's segment sums run in edge order like the
-plain ``segment_reduce``, in f32 (rtol 1e-5); K0 and the row gather are
-exact. Forward Push and BASE rows on the card agree with the CPU's within
+plain ``segment_reduce``, in f32, and are held to it bit for bit; K0 and
+the row gather are exact. Forward Push and BASE rows on the card agree with the CPU's within
 1e-6, and with the same sweep count."""
 
 import numpy as np
@@ -255,10 +255,12 @@ def k3_operands(cuda, b, *, misalign=False):
 
 @pytest.mark.parametrize("order", ["bydst", "bysrc"])
 @pytest.mark.parametrize("misalign", [False, True], ids=["aligned", "offset"])
-@pytest.mark.parametrize("b", [1, 3, 50, 512, 2048])
+@pytest.mark.parametrize("b", [1, 3, 50, 64, 68, 512, 2048, 2050])
 def test_k3_matches_plain(cuda, b, misalign, order):
     """K3 on the forward push's destination-sorted edges and on the
-    backward push's source-sorted ones (BASE pushes 512 targets a batch)."""
+    backward push's source-sorted ones (BASE pushes 512 targets a batch);
+    64, 68, 2048 and 2050 columns are a slab's width, a ragged tile, whole
+    16-byte tiles and a ragged 4-byte one."""
     g, table = k3_operands(cuda, b, misalign=misalign)
     src, ptr = ((g.edge_src_bydst, g.bydst_ptr) if order == "bydst"
                 else (g.edge_dst, g.bysrc_ptr))
@@ -268,12 +270,38 @@ def test_k3_matches_plain(cuda, b, misalign, order):
     torch.cuda.synchronize()
     assert row_gather.segment_sum_launches == before + 1
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
-    # the same bits every run
+    # the plain version's bits, and the same bits every run
+    assert torch.equal(got, ref)
     assert torch.equal(got, row_gather.gather_segment_sum(table, src, ptr))
 
 
-@pytest.mark.parametrize("b", [1, 3, 50, 2048])
+@pytest.mark.parametrize("slab", [None, 32, 64], ids=["whole", "32", "64"])
+@pytest.mark.parametrize("b", [64, 256, 260])
+def test_k3_long_segment_beside_empty_ones(cuda, monkeypatch, b, slab):
+    """One segment of 1,000 edges (125 rounds of the unrolled loop) between
+    empty ones and short ones, walked whole and in slabs."""
+    if slab is not None:
+        plan = row_gather.make_plan
+        monkeypatch.setattr(row_gather, "make_plan",
+                            lambda n, c, a: plan(n, c, a, slab))
+    lengths = [0, 3, 0, 0, 1000, 0, 9, 8, 0, 17, 1, 0]
+    ptr = torch.tensor(np.concatenate([[0], np.cumsum(lengths)]),
+                       device=cuda)
+    rng = np.random.default_rng(5)
+    src = torch.as_tensor(rng.integers(0, 300, int(ptr[-1])).astype(np.int32),
+                          device=cuda)
+    table = torch.rand((300, b), device=cuda)
+    got = row_gather.gather_segment_sum(table, src, ptr)
+    ref = row_gather.gather_segment_sum_ref(table, src, ptr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(got, row_gather.gather_segment_sum(table, src, ptr))
+    assert not got[[0, 2, 3, 5, 8, 11]].any()
+
+
+@pytest.mark.parametrize("b", [1, 3, 50, 64, 68, 2048, 2050])
 def test_row_gather_matches_plain(cuda, b):
+    """The unit-segment case of K3's template, at its tile edges."""
     table = torch.rand((4096, b), device=cuda)
     idx = (torch.arange(8192, device=cuda) * 7919 % 4096).to(torch.int32)
     before = row_gather.gather_launches
@@ -301,6 +329,44 @@ def test_k3_p4_accum_and_empty_segments(cuda):
     torch.cuda.synchronize()
     assert not out[[0, 1, 3, 4, 5, 7, 8]].any()
     torch.testing.assert_close(out[2], table[src[:2].long()].sum(0))
+
+
+def test_wrappers_capture_in_a_cuda_graph(cuda):
+    """K0, ``row_gather`` and K3 launch on the current stream, do not
+    synchronise and allocate only through torch: once the card is probed,
+    one CUDA graph holds all three, and its replays equal the eager
+    results. The sweep loops' CUDA graph depends on it."""
+    g, table = k3_operands(cuda, 64)
+    x = torch.rand(probe.SHAPE, device=cuda)
+    idx = (torch.arange(512, device=cuda) * 7919 % g.n_pad).to(torch.int32)
+
+    def run():
+        return (probe.double(x), row_gather.row_gather(table, idx),
+                row_gather.gather_segment_sum(table, g.edge_src_bydst,
+                                              g.bydst_ptr))
+
+    eager = [t.clone() for t in run()]   # probes, and asks for the waves
+    counts = (probe.launches, row_gather.gather_launches,
+              row_gather.segment_sum_launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    assert (probe.launches, row_gather.gather_launches,
+            row_gather.segment_sum_launches) == tuple(c + 1 for c in counts)
+    for _ in range(2):
+        for t in captured:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
+    # new operands in the captured buffers: a replay computes on them
+    x.mul_(3.0)
+    table.add_(1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(captured, run()):
+        assert torch.equal(got, want)
 
 
 def test_k3_and_row_gather_reject_bad_operands(cuda):
