@@ -51,7 +51,33 @@ script exits non-zero:
    by operator, K3's share, the span from first to last kernel, and the
    device's idle share in it. The chrome trace is written to
    ``build/ppr_tpu_torch/bench_trace.json``;
-9. the protocol path: the port's CLI (``ppr_tpu_torch.cli.main``)
+9. the serving layer (``ppr_tpu_torch/serving.py``) on the bench graph and
+   service: ``[serving:prewarm]`` (``PPRBatchServer(max_batch=2048,
+   prewarm=True)``: first and second call time of each rung 8..2048, the
+   probe sources spread over real nodes, K0 probed once on the main thread
+   before the dispatcher starts), ``[serving:open-loop]`` (capacity at max
+   batch after one untimed flood, Poisson arrivals at 0.5 and 0.8 of it for
+   5 s each through ``serving_latency_torch.run_rate``: qps, p50/p95/p99,
+   mean batch, dispatches, padded rows; every dispatch on the dispatcher
+   thread, the graph's card and its default stream; precision@10 of the
+   hit lists the futures return for the 32 oracle sources in the streams),
+   ``[serving:slo]`` (the same stream at 0.5 with ``slo_ms`` twice the warm
+   time of rung 256: cap moves, ``slo_unattainable``, precision@10),
+   ``[serving:cohort]`` (``PPRService(cohort=True)`` behind the server at
+   0.5: percentiles beside batch mode's, each dispatch covered once by its
+   cohorts, 16 served hit lists against solo ``top_k_stream`` runs,
+   precision@10, and a full-width dispatch both ways in turns). The
+   servers hold the real services; ``EngineSpy`` records each engine call
+   below them (width, time, thread, card, stream, cohorts),
+   ``[serving:early-exit]`` (one bench batch with the certificate: sweeps
+   and qps beside ``[bench]``'s, the same top-10 sets),
+   ``[serving:precomputed]`` (a BASE store of the ca-GrQc stand-in at
+   threshold 1e-3, 512 requests through ``serve_loop``, every hit list equal
+   to the store's row), ``[serving:daemon]`` (``python -m
+   ppr_tpu_torch.serving --db synth:2048x8 --device cuda`` in a process of
+   its own: 64 answers, a stats line, exit 0) and ``[bench:json]``
+   (``bench_torch.py``'s JSON line, recall_at_10 >= 0.99);
+10. the protocol path: the port's CLI (``ppr_tpu_torch.cli.main``)
    in-process, run from ``build/ppr_tpu_torch/protocol/<run>/`` (its
    preprocessing stores land there, its output goes to ``cli.log``), on
    the GOT-scale graph (Neo4j method Tests 1-3 and FORA top-k Test 2; then
@@ -65,13 +91,13 @@ script exits non-zero:
    and a Forward Push store against a direct push.
 
 Launch counts are reset before the serving path (7) and read after it,
-and again before and after the protocol path (9); a reset also forgets
-the probe, so each path runs K0 once before its first hand kernel. The
-last three lines are the kernels' JSON record (``launches`` summed over
-the two paths; ``row_gather`` is a microbenchmark, as P1-P4 were on the
-TPU, so no path launches it; ``ms``, ``plain_ms``, ``library_ms``,
-``bound_ms`` and ``bound_by`` at one shape each, and ``shapes`` with
-every shape's), the card line, and
+and again before and after the serving layer (9) and the protocol path
+(10); a reset also forgets the probe, so each path runs K0 once before its
+first hand kernel. The last three lines are the kernels' JSON record
+(``launches`` summed over the three paths; ``row_gather`` is a
+microbenchmark, as P1-P4 were on the TPU, so no path launches it; ``ms``,
+``plain_ms``, ``library_ms``, ``bound_ms`` and ``bound_by`` at one shape
+each, and ``shapes`` with every shape's), the card line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script prints
 no result and exits 1.
 """
@@ -661,6 +687,442 @@ def profile_batch(algo, sources) -> None:
               f"{us / 1e3 / sweeps:7.3f} ms/sweep")
 
 
+class EngineSpy:
+    """Records each call of the engine behind a real ``PPRService``, one
+    layer below ``top_k`` / ``top_k_stream``: its width, seconds, thread,
+    card, stream and number of distinct sources, and per stream the
+    cohorts' row indices. The rows a caller gets are read from the futures,
+    not from here."""
+
+    def __init__(self, svc):
+        algo = svc._topk_algo
+        self.calls = []
+        self.streams = []
+        batch = algo.compute_topk_ids_batch
+        cohorts = getattr(algo, "compute_topk_ids_cohorts", None)
+
+        def compute_topk_ids_batch(sources, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = batch(sources, *args, **kwargs)
+            self._note(sources, t0)
+            return out
+
+        def compute_topk_ids_cohorts(sources, *args, **kwargs):
+            t0 = time.perf_counter()
+            seen = []
+            for idxs, vals, ids in cohorts(sources, *args, **kwargs):
+                seen.append(np.asarray(idxs))
+                yield idxs, vals, ids
+            self._note(sources, t0)
+            self.streams.append((len(sources), seen))
+
+        algo.compute_topk_ids_batch = compute_topk_ids_batch
+        if cohorts is not None:
+            algo.compute_topk_ids_cohorts = compute_topk_ids_cohorts
+
+    def _note(self, sources, t0):
+        import threading
+
+        import torch
+
+        self.calls.append((len(sources), time.perf_counter() - t0,
+                           threading.current_thread().name,
+                           torch.cuda.current_device(),
+                           torch.cuda.current_stream().cuda_stream,
+                           len(set(np.asarray(sources).tolist()))))
+
+
+class Recorder:
+    """The server as ``run_rate`` sees it, keeping each request's source
+    and future, so the checks read what the callers got back."""
+
+    def __init__(self, server):
+        self.server = server
+        self.stats = server.stats
+        self.sent = []
+
+    def submit(self, source):
+        fut = self.server.submit(source)
+        self.sent.append((int(source), fut))
+        return fut
+
+
+def served_precision(oracle, oracle_sources, sent, tol) -> tuple:
+    """Precision@10 of every served hit list whose source has an oracle
+    row, against that row's top-10 with ties. A hit list carries only its
+    exact ties, so the tie tolerance goes on the oracle's side: a hit
+    within ``tol`` of the oracle's 10th value counts as right. Returns the
+    mean and the number of rows."""
+    from ppr_tpu_torch.ops.topk import topk_ids_with_ties
+
+    row_of = {int(s): i for i, s in enumerate(oracle_sources)}
+    precs = []
+    for s, fut in sent:
+        if s not in row_of:
+            continue
+        o = oracle[row_of[s]]
+        gnd = topk_ids_with_ties(o, K)
+        kth = o[gnd].min()
+        ids = np.array([h.node for h in fut.result(timeout=300)], np.int64)
+        precs.append(min(int((o[ids] >= kth - tol).sum()), len(gnd))
+                     / len(gnd))
+    return float(np.mean(precs)) if precs else 0.0, len(precs)
+
+
+def topk_ids_tol(vals, ids, tol):
+    from ppr_tpu_torch.ops.topk import topk_ids_with_ties_from_pairs
+
+    return topk_ids_with_ties_from_pairs(vals, ids, K, tol=tol)
+
+
+def window_stats(server, mark) -> dict:
+    """Dispatches, mean batch and padded rows since ``mark`` (a dict of the
+    counters taken earlier)."""
+    st = server.stats
+    d = st.dispatches - mark["dispatches"]
+    rows = st.dispatched_rows - mark["rows"]
+    return {"dispatches": d, "mean_batch": rows / d if d else 0.0,
+            "padded_rows": st.padded_rows - mark["padded"]}
+
+
+def stats_mark(server) -> dict:
+    st = server.stats
+    return {"dispatches": st.dispatches, "rows": st.dispatched_rows,
+            "padded": st.padded_rows}
+
+
+def service_ms(spy, since: int) -> str:
+    """Mean seconds of the service calls since call ``since``, by width."""
+    by_width = {}
+    for width, secs, *_ in spy.calls[since:]:
+        by_width.setdefault(width, []).append(secs * 1e3)
+    return ", ".join(f"{w}: {np.mean(t):.1f} ms ({len(t)})"
+                     for w, t in sorted(by_width.items()))
+
+
+def open_loop(tag, server, spy, pool, rate, seconds, seed):
+    """``serving_latency_torch.run_rate`` at ``rate`` qps, with the
+    dispatch counters of the window and the service time by width; checks
+    that every request resolved with a hit list and left a latency sample.
+    Returns the row and the ``(source, future)`` pairs sent."""
+    import random
+
+    from serving_latency_torch import run_rate
+
+    mark = stats_mark(server)
+    n0, c0 = len(server.stats.latencies_ms), len(spy.calls)
+    rec = Recorder(server)
+    row = run_rate(rec, pool, rate, seconds, random.Random(seed))
+    row.update(window_stats(server, mark))
+    check(len(server.stats.latencies_ms) - n0 == row["requests"]
+          == len(rec.sent) and all(f.done() and f.result()
+                                   for _, f in rec.sent),
+          f"[{tag}] {row['requests']} requests, "
+          f"{len(server.stats.latencies_ms) - n0} resolved")
+    print(f"[{tag}] offered {row['offered_qps']:.1f} qps for {seconds} s: "
+          f"{row['requests']} requests, all resolved with hit lists, achieved "
+          f"{row['achieved_qps']:.1f} qps; p50 {row['p50_ms']:.1f} ms, p95 "
+          f"{row['p95_ms']:.1f}, p99 {row['p99_ms']:.1f}, mean "
+          f"{row['mean_ms']:.1f}; {row['dispatches']} dispatches, mean batch "
+          f"{row['mean_batch']:.1f}, padded rows {row['padded_rows']}, drain "
+          f"{row['drain_s']:.3f} s; service time by width "
+          f"{service_ms(spy, c0)}")
+    return row, rec.sent
+
+
+def serve_burst(server, sources):
+    """Submit ``sources`` at once and wait for every row."""
+    return [f.result(timeout=300) for f in [server.submit(int(s))
+                                            for s in sources]]
+
+
+def serving_layer(dev, ds, svc, sources, oracle, bench) -> dict[str, int]:
+    """The serving layer on the bench graph and service: ``PPRBatchServer``
+    (prewarm, open loop, SLO, cohort streaming), the early exit, the
+    precomputed-BASE daemon loop on the ca-GrQc stand-in, the stdio daemon
+    in a process of its own, and ``bench_torch.py``'s line. Returns the
+    path's launch counts (the daemon process's own are not among them).
+    ``bench`` holds [bench]'s ``dt``, ``sweeps``, ``vals`` and ``ids``."""
+    import io
+    import random
+    import subprocess
+
+    import torch
+
+    import bench_torch
+    from ppr_tpu_torch.cli import load_dataset
+    from ppr_tpu_torch.models.base_allpair import BaseAllPair
+    from ppr_tpu_torch.models.fora import ForaTopk
+    from ppr_tpu_torch.ops import probe
+    from ppr_tpu_torch.ops.topk import topk_ids_with_ties
+    from ppr_tpu_torch.service import PPRService
+    from ppr_tpu_torch.serving import PPRBatchServer, serve_loop
+    from serving_latency_torch import measure_capacity
+
+    n_acc = len(oracle)
+    tol = EPS / ds.n
+    hs = svc._topk_algo.hub_split
+    rng = random.Random(0)
+    pool = [rng.randrange(ds.n) for _ in range(4096)]
+    # the oracle's sources, one every 64 requests of the pool, so that each
+    # stream of 2,048 requests or more serves every one of them
+    for j, s in enumerate(sources[:n_acc]):
+        pool[64 * j] = int(s)
+    index = ds.graph.device.index or 0
+    stream0 = torch.cuda.default_stream(dev).cuda_stream
+    reset_launches()
+
+    def served_check(tag, sent):
+        prec, n_rows = served_precision(oracle, sources[:n_acc], sent, tol)
+        check(n_rows >= n_acc and prec >= 0.99,
+              f"[{tag}] precision@10 {prec} of {n_rows} served rows < 0.99")
+        return prec, n_rows
+
+    # --- [serving:prewarm] ------------------------------------------------
+    spy = EngineSpy(svc)
+    t0 = time.perf_counter()
+    server = PPRBatchServer(svc, max_batch=2048, prewarm=True)
+    prewarm_s = time.perf_counter() - t0
+    rungs = [8 << i for i in range(9)]
+    check(server.stats.prewarmed_widths == rungs,
+          f"prewarmed widths {server.stats.prewarmed_widths}")
+    check(probe.launches == 1 and index in probe.probed,
+          "prewarm did not leave K0 probed once, on this thread")
+    firsts = {}
+    for width, secs, thread, card, stream, distinct in spy.calls:
+        firsts.setdefault(width, []).append(secs * 1e3)
+        check(thread == "MainThread", f"prewarm ran on {thread}")
+        # n_nodes read: rung w probes w distinct real nodes, not copies
+        check(distinct == width and svc.n_nodes == ds.n,
+              f"prewarm probed {distinct} distinct sources at width {width}")
+    for w in rungs:
+        first, second = firsts[w][:2]
+        print(f"[serving:prewarm] rung {w:4d}: first call {first:9.1f} ms, "
+              f"second {second:8.1f} ms ({w / second * 1e3:7.1f} rows/s); "
+              f"EWMA seed {server._svc_time_ms[w]:.1f} ms")
+    print(f"[serving:prewarm] 9 rungs 8..2048 prewarmed in {prewarm_s:.1f} s "
+          f"on the main thread; sources spread over n_nodes={svc.n_nodes} "
+          f"(rung w probes w distinct nodes); K0 launched once, before the "
+          f"dispatcher started")
+
+    # --- [serving:open-loop] ----------------------------------------------
+    warm256 = server._svc_time_ms[256]
+    serve_burst(server, pool[:2048])        # settle: one untimed flood
+    mark, c0 = stats_mark(server), len(spy.calls)
+    cap = measure_capacity(server, pool, 2048, reps=4)
+    flood = window_stats(server, mark)
+    print(f"[serving:open-loop] capacity at max batch 2048: {cap:.1f} qps "
+          f"(one untimed flood of 2048 requests, then four timed: "
+          f"{flood['dispatches']} dispatches, mean batch "
+          f"{flood['mean_batch']:.1f}; service time by width "
+          f"{service_ms(spy, c0)}); the warm EWMAs' best rows/s "
+          f"{max(w / t for w, t in server._svc_time_ms.items()) * 1e3:.1f}")
+    rows, sent = {}, []
+    for frac in (0.5, 0.8):
+        rows[frac], frac_sent = open_loop(f"serving:open-loop {frac}",
+                                          server, spy, pool, frac * cap, 5.0,
+                                          int(frac * 10))
+        sent += frac_sent
+    prec, n_prec = served_check("serving:open-loop", sent)
+    threads = {(t, c, st) for _, _, t, c, st, _ in spy.calls[2 * len(rungs):]}
+    check(threads == {("ppr-batch-dispatch", index, stream0)},
+          f"dispatcher calls ran on {threads}")
+    print(f"[serving:open-loop] precision@10 of the {n_prec} hit lists the "
+          f"futures returned for the {n_acc} oracle sources in the streams: "
+          f"{prec:.4f} (tie tol {tol:.3e}, on the oracle's side); every "
+          f"dispatch ran on thread ppr-batch-dispatch, card {index}, the "
+          f"default stream")
+    print(f"[serving:open-loop] warm EWMAs after the runs: " + ", ".join(
+        f"{w}: {t:.1f} ms" for w, t in sorted(server._svc_time_ms.items())))
+    server.close()
+
+    # --- [serving:slo] ------------------------------------------------------
+    slo_ms = 2.0 * warm256
+    server = PPRBatchServer(svc, max_batch=2048, slo_ms=slo_ms, prewarm=True)
+    _, slo_sent = open_loop("serving:slo", server, spy, pool, 0.5 * cap, 5.0,
+                            7)
+    sprec, n_sprec = served_check("serving:slo", slo_sent)
+    print(f"[serving:slo] slo_ms {slo_ms:.1f} (2x rung 256's warm prewarm "
+          f"time {warm256:.1f} ms): cap moves {server.stats.cap_moves[:24]}"
+          f"{' ...' if len(server.stats.cap_moves) > 24 else ''} "
+          f"({len(server.stats.cap_moves)} in all), final cap "
+          f"{server._cap()}, slo_unattainable "
+          f"{server.stats.slo_unattainable} (ever "
+          f"{server.stats.slo_unattainable_ever}), widened dispatches "
+          f"{server.stats.widened_dispatches}; precision@10 of {n_sprec} "
+          f"served rows {sprec:.4f}")
+    server.close()
+
+    # --- [serving:cohort] ------------------------------------------------
+    csvc = PPRService.from_dataset(ds, alpha=ALPHA, eps=EPS, k=K, seed=7,
+                                   cohort=True)
+    csvc._topk_algo.hub_split = hs          # the bench service's hub split
+    cspy = EngineSpy(csvc)
+    server = PPRBatchServer(csvc, max_batch=2048, prewarm=True)
+    crow, csent = open_loop("serving:cohort", server, cspy, pool, 0.5 * cap,
+                            5.0, 5)
+    server.close()
+    for width, cohorts in cspy.streams:
+        flat = np.sort(np.concatenate(cohorts))
+        check(np.array_equal(flat, np.arange(width)),
+              f"a width-{width} dispatch's cohorts do not cover it once")
+    sizes = [len(c) for w, cs in cspy.streams if w == 2048 for c in cs]
+    cprec, n_cprec = served_check("serving:cohort", csent)
+    print(f"[serving:cohort] p50 {crow['p50_ms']:.1f} / p95 "
+          f"{crow['p95_ms']:.1f} / p99 {crow['p99_ms']:.1f} ms beside batch "
+          f"mode's {rows[0.5]['p50_ms']:.1f} / {rows[0.5]['p95_ms']:.1f} / "
+          f"{rows[0.5]['p99_ms']:.1f} at {0.5 * cap:.1f} qps; "
+          f"{len(cspy.streams)} streamed dispatches, each covered once by its "
+          f"cohorts; the prewarm's width-2048 cohorts {sizes[:12]}")
+    served_hits = {}
+    for s, fut in csent:
+        served_hits.setdefault(s, fut.result(timeout=300))
+    solo_rows = list(dict.fromkeys(pool))[:16]
+    check(all(s in served_hits for s in solo_rows),
+          "a row to hold against its solo run was not served")
+    max_rel, exact = 0.0, 0
+    for s in solo_rows:
+        solo = []
+        csvc.top_k_stream([s], emit=lambda idxs, hits: solo.extend(hits))
+        got, want = served_hits[s], solo[0]
+        check({h.node for h in got} == {h.node for h in want},
+              f"row {s}: served ids differ from a solo run")
+        exact += int([(h.node, h.score) for h in got]
+                     == [(h.node, h.score) for h in want])
+        score = {h.node: h.score for h in want}
+        top = max(score.values())
+        max_rel = max(max_rel, max(abs(h.score - score[h.node]) / top
+                                   for h in got))
+    # a full-width dispatch both ways, in turns: the work a stream saves
+    full = {"batch": [], "cohort": []}
+    for _ in range(3):
+        for mode, run in (("batch", lambda: svc.top_k(sources)),
+                          ("cohort", lambda: csvc.top_k_stream(
+                              sources, emit=lambda *a: None))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            full[mode].append((time.perf_counter() - t0) * 1e3)
+    print(f"[serving:cohort] 16 served hit lists against solo "
+          f"``top_k_stream`` runs of their sources: ids equal on all 16; "
+          f"bit-equal on {exact}; largest score difference {max_rel:.2e} of "
+          f"the row's top score; precision@10 of {n_cprec} served rows "
+          f"{cprec:.4f} (tie tol {tol:.3e}); B={len(sources)} in turns, ms: "
+          f"top_k {', '.join(f'{t:.1f}' for t in full['batch'])}, "
+          f"top_k_stream {', '.join(f'{t:.1f}' for t in full['cohort'])}")
+
+    # --- [serving:early-exit] ---------------------------------------------
+    ee = ForaTopk(ds, ALPHA, K, seed=7, early_exit=True)
+    ee.hub_split = hs
+    ee.compute_topk_ids_batch(sources, K, EPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evals, eids = ee.compute_topk_ids_batch(sources, K, EPS)
+    edt = time.perf_counter() - t0
+    differ = [i for i in range(len(sources)) if set(topk_ids_tol(
+        evals[i], eids[i], 0.0)) != set(topk_ids_tol(
+            bench["vals"][i], bench["ids"][i], 0.0))]
+    print(f"[serving:early-exit] B={len(sources)}: {ee.last_iters} sweeps, "
+          f"{edt * 1e3:.1f} ms = {len(sources) / edt:.1f} qps beside "
+          f"[bench]'s {bench['sweeps']} sweeps, "
+          f"{len(sources) / bench['dt']:.1f} qps; tie-expanded top-10 sets "
+          f"equal to the plain batch's on {len(sources) - len(differ)} of "
+          f"{len(sources)} rows")
+    check(not differ, f"early exit changed the top-10 set of rows "
+          f"{differ[:8]}")
+    del ee, evals, eids
+
+    # --- [serving:precomputed] --------------------------------------------
+    work = os.path.abspath(os.path.join("build", "ppr_tpu_torch", "serving",
+                                        "precomputed"))
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)    # a BASE store's root is relative to the CWD
+        grqc = load_dataset("synth:grqc", device=dev)
+        thr = 1e-3        # the cheapest BASE threshold of [protocol:grqc]
+        t0 = time.perf_counter()
+        BaseAllPair(grqc, ALPHA).preprocessing(thr, -1, progress=False)
+        prep_s = time.perf_counter() - t0
+        psvc = PPRService.from_dataset(grqc, alpha=ALPHA, k=K,
+                                       precomputed=(thr, -1))
+        qs = np.random.default_rng(9).integers(0, grqc.n, 512)
+        lines = io.StringIO("".join(json.dumps({"source": int(q), "id": j})
+                                    + "\n" for j, q in enumerate(qs)))
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        pstats = serve_loop(psvc, lines, out, max_batch=64)
+        loop_s = time.perf_counter() - t0
+        resp = {r["id"]: r for r in map(json.loads,
+                                         out.getvalue().splitlines())}
+        store = psvc._topk_algo._store
+        for j, q in enumerate(qs):
+            ids, vals = store.read_row_ordered(int(q))
+            dense = np.zeros(grqc.graph.n_pad, np.float32)
+            dense[ids] = vals
+            want = [[int(v), float(dense[v])]
+                    for v in topk_ids_with_ties(dense, K)]
+            got = [[h[0], h[1]] for h in resp[j]["hits"]]
+            check(got == want, f"precomputed row {q} differs from the store")
+        nbytes = store.size_bytes()
+    finally:
+        os.chdir(cwd)
+    pct = pstats.latency_percentiles()
+    print(f"[serving:precomputed] synth:grqc BASE store at threshold {thr} "
+          f"(whole-graph rows, {nbytes} bytes, built in "
+          f"{prep_s:.2f} s): 512 requests through serve_loop in "
+          f"{loop_s:.3f} s = {512 / loop_s:.1f} qps, {pstats.dispatches} "
+          f"dispatches, p50 {pct['p50']:.2f} / p99 {pct['p99']:.2f} ms; every "
+          f"hit list equals the store's row read directly")
+
+    # --- [serving:daemon] -------------------------------------------------
+    reqs = [json.dumps({"source": int(s), "id": j})
+            for j, s in enumerate(np.random.default_rng(8).integers(0, 2048,
+                                                                     64))]
+    reqs.append(json.dumps({"cmd": "stats", "id": "stats"}))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ppr_tpu_torch.serving", "--db",
+         "synth:2048x8", "--device", "cuda"], stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        dout, derr = proc.communicate("\n".join(reqs) + "\n", timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    daemon_s = time.perf_counter() - t0
+    answers = [json.loads(line) for line in dout.splitlines()]
+    hits = [a for a in answers if "hits" in a]
+    dstats = [a["stats"] for a in answers if "stats" in a]
+    ready = [line for line in derr.splitlines() if '"ready"' in line]
+    print(f"[serving:daemon] python -m ppr_tpu_torch.serving --db "
+          f"synth:2048x8 --device cuda: exit {proc.returncode} after "
+          f"{daemon_s:.1f} s; {len(hits)} hit responses, stats line "
+          f"{dstats[:1]}; {ready[:1]}")
+    check(proc.returncode == 0, f"the daemon exited {proc.returncode}: "
+          f"{derr[-2000:]}")
+    check(len(hits) == 64 and all(a["hits"] for a in hits)
+          and sorted(a["id"] for a in hits) == list(range(64)),
+          "the daemon did not answer the 64 requests")
+    check(len(dstats) == 1, "the daemon gave no stats line")
+
+    # --- [bench:json] -------------------------------------------------------
+    rec = bench_torch.run(bench_torch.parse_args([]))
+    print(f"[bench:json] {json.dumps(rec)}")
+    check(rec["recall_at_10"] >= 0.99,
+          f"bench_torch recall_at_10 {rec['recall_at_10']} < 0.99")
+    counts = read_launches()
+    print(f"[serving] serving-layer path launches: K3 {counts['k3']}, K0 "
+          f"{counts['k0']}, K1 {counts['k1']}")
+    check(counts["k3"] > 0, "the serving layer did not launch K3")
+    check(counts["k0"] == 1, f"K0 ran {counts['k0']} times on the serving "
+          "layer, not once")
+    return counts
+
+
 def reset_launches() -> None:
     """Zero every kernel's launch count; forget the probe, so K0 runs
     again before the next hand-kernel launch."""
@@ -1099,12 +1561,17 @@ def main() -> int:
     # --- 8. where the time goes at the benchmark size ------------------
     profile_batch(algo, sources)
 
-    # --- 9. the protocol path ----------------------------------------------
+    # --- 9. the serving layer ---------------------------------------------
+    layer = serving_layer(dev, ds, svc, sources, oracle, {
+        "dt": dt, "sweeps": sweeps, "vals": vals, "ids": ids})
+
+    # --- 10. the protocol path ---------------------------------------------
     protocol = protocol_path(dev, next(
         sh["ms"] for sh in k2["shapes"] if sh["case"] == "b128"))
     check(protocol["k3"] > 0, "K3 was not launched on the protocol path")
-    launches = {k: serving[k] + protocol[k] for k in serving}
-    print(f"[launches] serving path {serving}, protocol path {protocol}")
+    launches = {k: serving[k] + layer[k] + protocol[k] for k in serving}
+    print(f"[launches] serving path {serving}, serving layer {layer}, "
+          f"protocol path {protocol}")
     source = "ppr_tpu_torch/csrc/dense_power.cu"
     print(json.dumps({"kernels": [{
         "name": "dense_power_iterations",

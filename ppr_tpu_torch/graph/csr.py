@@ -11,6 +11,9 @@ package's pytree, so the two packages' arrays compare element for element:
   their row pointer (``int64[n_pad + 1]``), and ``bysrc_ptr`` that of the
   primary, source-sorted order. Both are built here once, so every forward
   and reverse sweep reduces its segments in order, with no atomics.
+* ``dang_ids`` lists the dangling real nodes (out-degree 0), whose mass the
+  FORA loops return to the source every sweep. It is a graph constant, so
+  it is built here once and no sweep loop asks the device for it.
 
 Construction runs on the host in numpy (the argsort path of the JAX
 package's ``build_graph``, which gives the same layout as its native C++
@@ -56,6 +59,7 @@ class Graph:
     out_deg: torch.Tensor         # int32[n_pad]
     in_deg: torch.Tensor          # int32[n_pad]
     node_mask: torch.Tensor       # float32[n_pad]
+    dang_ids: torch.Tensor        # int64[#dangling]: out_deg 0, real node
 
     # --- optional dense operator (None for large graphs) ---
     dense_out: torch.Tensor | None  # float32[n_pad, n_pad]; row v = 1/d_v
@@ -114,11 +118,14 @@ def graph_from_numpy(arrays: dict, device=None) -> Graph:
     n_pad = int(t["out_deg"].shape[0])
     ptr = _segment_ptr(np.asarray(arrays["edge_dst_bydst"]), n_pad)
     ptr_src = _segment_ptr(np.asarray(arrays["edge_src"]), n_pad)
+    dang = np.nonzero((np.asarray(arrays["out_deg"]) == 0)
+                      & (np.asarray(arrays["node_mask"]) > 0))[0]
     dense = arrays.get("dense_out")
     return Graph(
         **t,
         bydst_ptr=torch.as_tensor(ptr, device=device),
         bysrc_ptr=torch.as_tensor(ptr_src, device=device),
+        dang_ids=torch.as_tensor(dang.astype(np.int64), device=device),
         dense_out=(None if dense is None else torch.as_tensor(
             np.array(dense, np.float32), device=device)),
         n=int(arrays["n"]),

@@ -17,14 +17,29 @@ JAX package's ``lax.while_loop``. Unlike that loop, the port evaluates the
 stopping count on every sweep, settled or not: skipping it would need the
 host to read ``settled`` each sweep.
 
+``early_exit=True`` adds the JAX package's set-stability certificate,
+tested every ``EARLY_CHECK_EVERY`` sweeps: once ``kth(p) > (k+1)th(p) +
+rsum`` on a row, no node outside the row's top k can enter it (the reserve
+only grows, and no node gains more than the remaining residue), so the id
+set is final; values are lower bounds.
+
+Cohort streaming (:meth:`ForaTopk.compute_topk_ids_cohorts`) anneals each
+row on its own schedule (:func:`annealed_topk_propagate_perrow`) and hands
+back rows as they retire, down a ladder of pow2 widths: a stage at width W
+runs until at most W/2 rows are live, then the stragglers go on at the
+pow2 width of their count. The ladder is semantics here, not a shape
+cache: where a stage stops decides which rows share a cohort, and with
+``early_exit`` on which sweeps a row's certificate is tested.
+
 Not ported yet: the push+walk rounds (``push="reference"``/``"auto"``),
-the cost model that chooses between them, FORA whole-graph, the cohort
-path and the early-exit certificate (ROADMAP.md, queue 1, items 11 and 16).
+the cost model that chooses between them (``calibrate``) and FORA
+whole-graph (ROADMAP.md, queue 1, item 11).
 """
 
 from __future__ import annotations
 
 import math
+import sys
 
 import numpy as np
 import torch
@@ -35,10 +50,14 @@ from ..ops.push import apply_dangling_source_shortcircuit, forward_push_init
 from ..ops.spmv import push_out_chunked_t, push_out_t
 from .base import PPRAlgorithm
 
-#: total annealed-sweep budget of a top-k query (as the JAX package)
+#: total annealed-sweep budget of a top-k query, shared by the batch loop
+#: and the cohort ladder (as the JAX package)
 MAX_TOPK_SWEEPS = 600
 #: sweeps between the host's reads of the device-side ``finished`` flag
 CHECK_EVERY = 8
+#: sweeps between tests of the early-exit certificate (the JAX package's
+#: ``early_check_every``)
+EARLY_CHECK_EVERY = 8
 
 
 def _pad_sources(sources, min_b: int = 8):
@@ -57,6 +76,49 @@ def _pad_sources(sources, min_b: int = 8):
     ), b
 
 
+def _pow2_width(b: int, lo: int = 8) -> int:
+    """Cohort width of ``b`` rows: the pow2 at or above it, at least 8."""
+    w = lo
+    while w < b:
+        w <<= 1
+    return w
+
+
+def _loop_constants(alpha: float, eps: float):
+    """The JAX loops' f32 constants ``alpha``, ``1 - alpha``, ``eps`` and
+    ``1 + eps``, held as Python floats so that the ``[n_pad, B]`` passes
+    take them as scalar arguments."""
+    f32 = np.float32
+    return (float(f32(alpha)), float(f32(1.0) - f32(alpha)), float(f32(eps)),
+            float(f32(1.0) + f32(eps)))
+
+
+def _push_residue(g: Graph, r_t: torch.Tensor, src_t: torch.Tensor,
+                  keep: float, hs: HubSplit | None, num_chunks: int):
+    """One sweep's new residue: ``(1-alpha) r`` pushed along the out-edges,
+    the dangling rows' share returned to each column's source."""
+    rem = r_t * keep
+    dang_mass = rem.index_select(0, g.dang_ids).sum(dim=0, keepdim=True)
+    if hs is not None:
+        pushed = push_out_hybrid_t(g, hs, rem, num_chunks=num_chunks)
+    elif num_chunks > 1:
+        pushed = push_out_chunked_t(g, rem, num_chunks=num_chunks)
+    else:
+        pushed = push_out_t(g, rem)
+    return pushed.addcmul_(dang_mass, src_t)
+
+
+def _set_stable(p_t: torch.Tensor, r_t: torch.Tensor, k: int) -> torch.Tensor:
+    """Per column of the node-major state: the top-k id set is final,
+    ``kth(p) > (k+1)th(p) + rsum`` (``ppr_tpu/models/fora.py:367-373``).
+    Boundary ties never certify (the gap is strict)."""
+    kk = min(k + 1, p_t.shape[0])
+    if kk <= k:                      # k >= n_pad: every node is in the set
+        return torch.ones(p_t.shape[1], dtype=torch.bool, device=p_t.device)
+    vals = torch.topk(p_t, kk, dim=0).values               # [k+1, B]
+    return vals[k - 1] > vals[kk - 1] + r_t.sum(dim=0)
+
+
 def annealed_topk_propagate(
     g: Graph,
     p: torch.Tensor,           # f32[B, n_pad]
@@ -69,6 +131,7 @@ def annealed_topk_propagate(
     alpha: float,
     hs: HubSplit | None = None,
     num_chunks: int = 1,
+    early_exit: bool = False,
 ):
     """The whole FORA top-k delta-annealing loop; returns ``(p, r,
     iters)`` with ``iters`` a device int32 scalar.
@@ -78,16 +141,11 @@ def annealed_topk_propagate(
     the count ``#{v: p_v >= (1+eps')*delta} >= k`` on every row, tested on
     the sweeps where ``max_row sum(r) <= eps'*delta`` (settled); a settled
     sweep that does not stop anneals delta by /4, down to ``min_delta``,
-    and a settled sweep at ``min_delta`` stops."""
+    and a settled sweep at ``min_delta`` stops. ``early_exit`` also stops
+    once every row's certificate holds (:func:`_set_stable`)."""
     dev = p.device
     f32 = torch.float32
-    # the JAX loop's f32 constants, held as Python floats so that the
-    # [n_pad, B] passes take them as scalar arguments
-    alpha_f = float(np.float32(alpha))
-    keep = float(np.float32(1.0) - np.float32(alpha))
-    eps_f = float(np.float32(eps))
-    thresh_scale = float(np.float32(1.0) + np.float32(eps))
-    dang_ids = torch.nonzero((g.out_deg == 0) & (g.node_mask > 0)).flatten()
+    alpha_f, keep, eps_f, thresh_scale = _loop_constants(alpha, eps)
     # node-major state [n_pad, B]: the per-edge gather reads [B]-wide rows
     p_t = p.T.contiguous()
     r_t = r.T.contiguous()
@@ -100,20 +158,16 @@ def annealed_topk_propagate(
         live = ~finished
         # a frozen sweep adds r * 0: p is unchanged bit for bit
         p_t = torch.addcmul(p_t, r_t, live * alpha_f)
-        rem = r_t * keep
-        dang_mass = rem.index_select(0, dang_ids).sum(dim=0, keepdim=True)
-        if hs is not None:
-            pushed = push_out_hybrid_t(g, hs, rem, num_chunks=num_chunks)
-        elif num_chunks > 1:
-            pushed = push_out_chunked_t(g, rem, num_chunks=num_chunks)
-        else:
-            pushed = push_out_t(g, rem)
-        r_new = pushed.addcmul_(dang_mass, src_t)
+        r_new = _push_residue(g, r_t, src_t, keep, hs, num_chunks)
         r_t = torch.where(live, r_new, r_t)
 
         settled = live & (r_t.sum(dim=0).max() <= eps_f * delta)
         thresh = thresh_scale * delta
         done = settled & ((p_t >= thresh).sum(dim=0) >= k).all()
+        # while the loop is live, ``sweep`` is the JAX loop's ``it``; after
+        # ``finished`` a certificate changes nothing
+        if early_exit and (sweep + 1) % EARLY_CHECK_EVERY == 0:
+            done = done | _set_stable(p_t, r_t, k).all()
         finished = finished | done | (settled & (delta <= min_delta))
         delta = torch.where(settled & ~finished,
                             torch.clamp_min(delta / 4.0, min_delta), delta)
@@ -121,6 +175,72 @@ def annealed_topk_propagate(
         if (sweep + 1) % CHECK_EVERY == 0 and bool(finished):
             break
     return p_t.T, r_t.T, it
+
+
+def annealed_topk_propagate_perrow(
+    g: Graph,
+    p: torch.Tensor,           # f32[B, n_pad]
+    r: torch.Tensor,           # f32[B, n_pad]
+    src_onehot: torch.Tensor,  # f32[B, n_pad]
+    eps: float,                # eps' = eps/2 already applied
+    delta: torch.Tensor,       # f32[B]: each row's annealing state
+    finished: torch.Tensor,    # bool[B]: rows already retired
+    live_floor: int,           # the stage ends once live rows <= live_floor
+    min_delta: float,
+    k: int,
+    alpha: float,
+    max_iters: int = MAX_TOPK_SWEEPS,
+    hs: HubSplit | None = None,
+    num_chunks: int = 1,
+    early_exit: bool = False,
+):
+    """One stage of cohort serving: the annealed loop with a schedule per
+    row (the reference's single-query loop, Fora_Topk.java:123-179, row by
+    row). A row's delta anneals when ITS residue settles, and the row
+    retires when its own rule fires; a retired row is frozen, so its result
+    is the one a run of that row alone gives. The stage ends once at most
+    ``live_floor`` rows are live, or after ``max_iters`` sweeps. Returns
+    ``(p, r, delta, finished, iters)``, ``iters`` a device int32 scalar;
+    the state carries on into the next stage.
+
+    The JAX loop tests ``live > live_floor`` before every sweep; the host
+    here reads it every ``CHECK_EVERY`` sweeps. ``stage_done`` holds that
+    test on the device, and every sweep after it is an exact no-op for all
+    rows: the returned state and ``iters`` are the JAX loop's. The
+    certificate is tested on the stage's own sweeps ``(it + 1) %
+    EARLY_CHECK_EVERY == 0``, ``it`` counting from 0 in every stage."""
+    alpha_f, keep, eps_f, thresh_scale = _loop_constants(alpha, eps)
+    p_t = p.T.contiguous()
+    r_t = r.T.contiguous()
+    src_t = src_onehot.T.contiguous()
+    it = torch.zeros((), dtype=torch.int32, device=p.device)
+
+    for sweep in range(max_iters):
+        stage_done = (~finished).sum() <= live_floor
+        frozen = finished | stage_done                       # [B]
+        p_t = torch.addcmul(p_t, r_t, ~frozen * alpha_f)
+        r_new = _push_residue(g, r_t, src_t, keep, hs, num_chunks)
+        r_t = torch.where(frozen, r_t, r_new)
+
+        settled = (r_t.sum(dim=0) <= eps_f * delta) & ~frozen
+        done = settled & ((p_t >= thresh_scale * delta).sum(dim=0) >= k)
+        # while the stage is live, ``sweep`` is the JAX loop's ``it``
+        if early_exit and (sweep + 1) % EARLY_CHECK_EVERY == 0:
+            done = done | (_set_stable(p_t, r_t, k) & ~stage_done)
+        finished = finished | done | (settled & (delta <= min_delta))
+        delta = torch.where(settled & ~finished,
+                            torch.clamp_min(delta / 4.0, min_delta), delta)
+        it = it + (~stage_done).to(torch.int32)
+        if (sweep + 1) % CHECK_EVERY == 0 and \
+                bool((~finished).sum() <= live_floor):
+            break
+    return p_t.T, r_t.T, delta, finished, it
+
+
+def _cohort_compact(p, r, src_onehot, delta, sources, sel):
+    """The straggler rows ``sel`` of the cohort state, for the next stage."""
+    return tuple(x.index_select(0, sel)
+                 for x in (p, r, src_onehot, delta, sources))
 
 
 def _device_topk_epilogue(g: Graph, sources: torch.Tensor, p: torch.Tensor,
@@ -143,7 +263,7 @@ class ForaTopk(PPRAlgorithm):
     hybrid_tail_budget = 6 << 30
 
     def __init__(self, dataset, alpha: float, k: int, *, seed: int = 0,
-                 push: str = "none"):
+                 push: str = "none", early_exit: bool = False):
         super().__init__(dataset, alpha, seed=seed)
         if push != "none":
             raise NotImplementedError(
@@ -157,7 +277,11 @@ class ForaTopk(PPRAlgorithm):
         self.delta0 = 1.0 / self.k
         self.pfail = 1.0 / n / n / math.log(max(n / self.k, math.e))
         self.push = push
-        #: sweeps the last annealed loop ran
+        #: stop as soon as every row's top-k id set is certified final
+        #: (ids as the full run's; values lower bounds)
+        self.early_exit = bool(early_exit)
+        #: sweeps the last annealed loop ran (summed over a cohort ladder's
+        #: stages)
         self.last_iters: int | None = None
 
     def _num_chunks(self, batch: int) -> int:
@@ -196,10 +320,11 @@ class ForaTopk(PPRAlgorithm):
         )
         return result.cpu().numpy()[:b]
 
-    def compute_topk_ids_batch(self, sources: np.ndarray, k: int, param):
+    def compute_topk_ids_batch(self, sources: np.ndarray, k: int, param, *,
+                               kcap: int | None = None):
         """Serving path: ``(values [B, K], ids [B, K])`` numpy, selected on
-        the device. K = ``min(max(4k, k+32), n_pad)`` leaves room for the
-        reference's tie semantics."""
+        the device. K = ``kcap`` (default ``min(max(4k, k+32), n_pad)``)
+        leaves room for the reference's tie semantics."""
         k = int(k) if k and k > 0 else self.k
         g = self.graph
         if len(sources) == 0:
@@ -208,10 +333,95 @@ class ForaTopk(PPRAlgorithm):
         result, sources_t, src_onehot = self._compute_topk_device(
             sources, k, param
         )
-        kcap = min(max(4 * k, k + 32), g.n_pad)
+        kcap = min(int(kcap) if kcap else max(4 * k, k + 32), g.n_pad)
         vals, ids = _device_topk_epilogue(g, sources_t, result, src_onehot,
                                           kcap)
         return vals.cpu().numpy()[:b], ids.cpu().numpy()[:b]
+
+    def compute_topk_ids_cohorts(self, sources: np.ndarray, k: int, param,
+                                 *, kcap: int | None = None):
+        """Streaming serving path: yields ``(orig_indices, vals, ids)``
+        cohorts as rows retire, instead of holding every row until the
+        slowest finishes (``ppr_tpu/models/fora.py:870-980``).
+
+        The per-row loop runs at the pow2 width ``W`` until at most ``W/2``
+        rows are live; the retired rows are yielded, and the stragglers go
+        on from the same state at the pow2 width of their count. A row's
+        trajectory is that of a run of the row alone. The stages share one
+        budget of ``MAX_TOPK_SWEEPS``; once it is spent, every row left is
+        yielded as it stands, and a line on stderr says so."""
+        k = int(k) if k and k > 0 else self.k
+        g = self.graph
+        sources = np.asarray(sources)
+        b = len(sources)
+        if b == 0:
+            return
+        eps = float(param) * 0.5      # eps' = eps/2 (Fora_Topk.java:110)
+        kcap = min(int(kcap) if kcap else max(4 * k, k + 32), g.n_pad)
+
+        budget = MAX_TOPK_SWEEPS      # one budget for all the stages
+        iters_used = 0
+        W = _pow2_width(b)
+        padded = np.zeros(W, np.int64)
+        padded[:b] = sources
+        sources_t = torch.as_tensor(padded, dtype=torch.int32,
+                                    device=g.device)
+        p, r, src_onehot = forward_push_init(g, sources_t)
+        p = torch.zeros_like(p)
+        delta = torch.full((W,), self.delta0, dtype=torch.float32,
+                           device=g.device)
+        fin0 = np.zeros(W, bool)
+        fin0[b:] = True               # pad rows never emit
+        finished = torch.as_tensor(fin0, device=g.device)
+        orig = np.full(W, -1, np.int64)
+        orig[:b] = np.arange(b)
+
+        while True:
+            live_floor = W // 2 if W > 8 else 0
+            p, r, delta, finished, iters = annealed_topk_propagate_perrow(
+                g, p, r, src_onehot, eps, delta, finished, live_floor,
+                self.min_delta, k, self.alpha, max_iters=budget - iters_used,
+                hs=self.hub_split, num_chunks=self._num_chunks(W),
+                early_exit=self.early_exit,
+            )
+            fin = finished.cpu().numpy()
+            iters_used += int(iters)
+            self.last_iters = iters_used
+            gave_up = iters_used >= budget and not fin.all()
+            if gave_up:
+                n_unconv = int((~fin & (orig >= 0)).sum())
+                print(f"ppr_tpu_torch.fora: cohort sweep budget {budget} "
+                      f"exhausted with {n_unconv} unconverged row(s); "
+                      f"emitting current estimates", file=sys.stderr,
+                      flush=True)
+            emit = (fin | gave_up) & (orig >= 0)
+            if emit.any():
+                rows = torch.as_tensor(np.nonzero(emit)[0], device=g.device)
+                vals, ids = _device_topk_epilogue(
+                    g, sources_t.index_select(0, rows),
+                    p.index_select(0, rows), src_onehot.index_select(0, rows),
+                    kcap)
+                yield orig[emit], vals.cpu().numpy(), ids.cpu().numpy()
+            if fin.all() or gave_up:
+                return
+            # the stragglers, at the pow2 width of their count (not just
+            # W/2: rows that retire together skip the stages between)
+            live_idx = np.nonzero(~fin)[0]
+            new_w = _pow2_width(len(live_idx))
+            sel = np.concatenate([
+                live_idx,
+                np.full(new_w - len(live_idx), live_idx[0], live_idx.dtype),
+            ])
+            p, r, src_onehot, delta, sources_t = _cohort_compact(
+                p, r, src_onehot, delta, sources_t,
+                torch.as_tensor(sel, device=g.device))
+            nf = np.zeros(new_w, bool)
+            nf[len(live_idx):] = True   # the duplicates never emit
+            finished = torch.as_tensor(nf, device=g.device)
+            new_orig = np.full(new_w, -1, np.int64)
+            new_orig[: len(live_idx)] = orig[live_idx]
+            orig = new_orig
+            W = new_w
 
     def _compute_topk_device(self, sources: np.ndarray, k: int, param):
         """``(result, sources, src_onehot)`` on the device, without the
@@ -226,6 +436,7 @@ class ForaTopk(PPRAlgorithm):
             g, p, r, src_onehot, eps, self.delta0, self.min_delta, k,
             self.alpha, hs=self.hub_split,
             num_chunks=self._num_chunks(len(sources)),
+            early_exit=self.early_exit,
         )
         self.last_iters = int(iters)
         return p, sources_t, src_onehot

@@ -6,9 +6,14 @@
 Top-k queries run the FORA top-k serving path (annealed deterministic
 propagation, device-side selection). ``hub_split=H`` turns on the dense-hub
 hybrid push with a bf16 hub product unless ``hub_dtype`` says otherwise.
-Not ported yet, and raising: ``mesh``, ``precomputed``, ``cohort``,
-``calibrate``, ``early_exit`` and :meth:`PPRService.whole_graph`
-(ROADMAP.md, queue 1).
+``early_exit=True`` stops the annealed loop once every row's top-k set is
+certified final; ``cohort=True`` adds :meth:`PPRService.top_k_stream`,
+which hands back rows as they retire; ``precomputed=(threshold, k)``
+answers every query from a BASE all-pair store made earlier.
+
+Not ported yet, and raising ``NotImplementedError``: ``mesh`` (ROADMAP.md,
+queue 1, item 18), ``calibrate`` and :meth:`PPRService.whole_graph`
+outside ``precomputed`` (both FORA's cost model and whole-graph, item 11).
 """
 
 from __future__ import annotations
@@ -38,21 +43,69 @@ class PPRService:
                  hub_split: int | None = None, hub_dtype=None,
                  calibrate: bool = False, mesh=None,
                  precomputed: tuple | None = None,
-                 early_exit: bool = False, cohort: bool = False):
-        unported = [name for name, v in (
-            ("mesh", mesh), ("precomputed", precomputed),
-            ("cohort", cohort or None), ("calibrate", calibrate or None),
-            ("early_exit", early_exit or None),
-        ) if v is not None]
-        if unported:
-            raise NotImplementedError(
-                f"{', '.join(unported)}: not ported yet (ROADMAP.md, queue 1)"
-            )
+                 early_exit: bool = False, mesh_engine: str = "edge",
+                 cohort: bool = False, frontier_blocks: int | None = None):
+        """``precomputed=(threshold, k)`` (or a bare threshold, ``k = -1``)
+        serves every query from an existing BASE store, the reference's
+        BASE query mode (Base_Whole_Graph.java:167-186): pure store reads.
+        ``mesh_engine`` and ``frontier_blocks`` are the JAX package's mesh
+        options, validated as there; a mesh itself is not ported."""
         self.dataset = dataset
         self.eps = eps
         self.k = k
-        self._topk_algo = AlgoConf(alpha, seed=seed).new_algo_obj(
-            algorithm, dataset, k)
+        self._cohort = bool(cohort)
+        conf = AlgoConf(alpha, seed=seed)
+        if precomputed is not None:
+            conflicts = [name for name, v in (
+                ("mesh", mesh), ("hub_split", hub_split),
+                ("calibrate", calibrate or None),
+                ("cohort", cohort or None),
+                ("frontier_blocks", frontier_blocks),
+            ) if v is not None] + (
+                ["algorithm"] if algorithm != AlgoType.FORA_TOPK else []
+            )
+            if conflicts:
+                raise ValueError(
+                    f"precomputed= serves pure BASE store reads; "
+                    f"{', '.join(conflicts)} would be silently ignored — "
+                    f"drop them or drop precomputed"
+                )
+            thr, pk = (precomputed if isinstance(precomputed, (tuple, list))
+                       else (precomputed, -1))
+            base = conf.new_algo_obj(AlgoType.BASE_WHOLE_GRAPH, dataset, k)
+            base.attach_store(thr, pk, alpha=alpha)
+            self._topk_algo = self._wg_algo = base
+            return
+        if frontier_blocks is not None and (
+                mesh is None or mesh_engine != "node"):
+            raise ValueError(
+                "frontier_blocks requires mesh= and mesh_engine='node' "
+                "(the ring-exchange engine); drop it or switch engines"
+            )
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: the sharded engines are not ported yet (ROADMAP.md, "
+                "queue 1, item 18)"
+            )
+        if calibrate:
+            raise NotImplementedError(
+                "calibrate: FORA's cost model is not ported yet (ROADMAP.md, "
+                "queue 1, item 11)"
+            )
+        self._topk_algo = conf.new_algo_obj(algorithm, dataset, k)
+        if early_exit:
+            if not hasattr(self._topk_algo, "early_exit"):
+                raise ValueError(
+                    f"early_exit is only supported by the single-device "
+                    f"FORA top-k serving engine, not {algorithm}"
+                )
+            self._topk_algo.early_exit = True
+        if cohort and not hasattr(self._topk_algo, "compute_topk_ids_cohorts"):
+            raise ValueError(
+                f"cohort streaming is only supported by the single-device "
+                f"FORA top-k serving engine, not {algorithm}"
+            )
+        self._wg_algo = None
         if hub_split and hasattr(self._topk_algo, "enable_hub_split"):
             self._topk_algo.hub_split = build_hub_split(
                 dataset.graph, hub_split,
@@ -109,8 +162,50 @@ class PPRService:
                 out[b] = self._hits_dense(row, k)
         return out
 
-    def whole_graph(self, sources, eps: float | None = None) -> np.ndarray:
-        raise NotImplementedError(
-            "whole_graph runs FORA whole-graph, which is not ported yet "
-            "(ROADMAP.md, queue 1, item 11)"
+    @property
+    def n_nodes(self) -> int:
+        """Graph node count: the serving layer spreads its prewarm sources
+        over real nodes instead of sending W copies of one source."""
+        return int(self.dataset.graph.n)
+
+    @property
+    def supports_stream(self) -> bool:
+        """True when :meth:`top_k_stream` is usable (``cohort=True`` and an
+        engine with the cohort path)."""
+        return self._cohort and hasattr(
+            self._topk_algo, "compute_topk_ids_cohorts"
         )
+
+    def top_k_stream(self, sources, k: int | None = None,
+                     eps: float | None = None, *, emit) -> None:
+        """Streaming top-k: calls ``emit(orig_indices, hits_rows)`` as row
+        cohorts retire, so a fast row's answer does not wait for the
+        slowest row of the batch (``ForaTopk.compute_topk_ids_cohorts``).
+        Requires ``cohort=True``."""
+        if not self.supports_stream:
+            raise RuntimeError(
+                "top_k_stream requires PPRService(cohort=True) with the "
+                "single-device FORA top-k engine"
+            )
+        k = k or self.k
+        eps_v = eps or self.eps
+        sources = np.asarray(sources)
+        for idxs, vals, ids in self._topk_algo.compute_topk_ids_cohorts(
+                sources, k, eps_v):
+            emit(idxs, self._hits_from_ids(vals, ids, k, sources[idxs],
+                                           eps_v))
+
+    def whole_graph(self, sources, eps: float | None = None) -> np.ndarray:
+        """Dense PPR rows ``[B, n]`` (padding trimmed); only from a
+        precomputed store so far."""
+        if self._wg_algo is None:
+            raise NotImplementedError(
+                "whole_graph runs FORA whole-graph, which is not ported yet "
+                "(ROADMAP.md, queue 1, item 11); a precomputed BASE store "
+                "answers it"
+            )
+        sources = np.asarray(sources)
+        scores = self._wg_algo.compute_whole_graph_batch(
+            sources, eps or self.eps
+        )
+        return np.asarray(scores)[:, : self.dataset.n]

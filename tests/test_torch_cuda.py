@@ -10,7 +10,11 @@ versions (2e-5 after 100 or 300 rounds, the JAX package's kernel-vs-XLA
 bound; 1e-5 for one product); K3's segment sums run in edge order like the
 plain ``segment_reduce``, in f32, and are held to it bit for bit; K0 and
 the row gather are exact. Forward Push and BASE rows on the card agree with the CPU's within
-1e-6, and with the same sweep count."""
+1e-6, and with the same sweep count; the cohort ladder and the early exit
+stop on the CPU's sweeps, with the same id sets; the batch server's rows
+are the service's."""
+
+import threading
 
 import numpy as np
 import pytest
@@ -28,6 +32,9 @@ from ppr_tpu_torch.models.power_method import PowerMethod, power_method_batch
 from ppr_tpu_torch.ops import dense_power, probe, row_gather, spmv
 from ppr_tpu_torch.ops.hub_split import build_hub_split, push_out_hybrid_t
 from ppr_tpu_torch.ops.push import forward_push_init
+from ppr_tpu_torch.ops.topk import topk_ids_with_ties_from_pairs
+from ppr_tpu_torch.service import PPRService
+from ppr_tpu_torch.serving import PPRBatchServer
 
 pytestmark = pytest.mark.cuda
 ALPHA = 0.15
@@ -459,3 +466,104 @@ def test_base_rows_match_cpu(cuda, tmp_path, monkeypatch, dense_threshold):
         g_row, c_row = np.zeros(128), np.zeros(128)
         g_row[gids], c_row[cids] = gvals, cvals
         np.testing.assert_allclose(g_row, c_row, atol=1e-6)
+
+
+def _cohorts(algo, sources, k, eps):
+    out = {}
+    cohorts = []
+    for idxs, vals, ids in algo.compute_topk_ids_cohorts(sources, k, eps):
+        cohorts.append(sorted(int(i) for i in idxs))
+        for i, v, nid in zip(idxs, vals, ids):
+            out[int(i)] = set(topk_ids_with_ties_from_pairs(v, nid, k))
+    return cohorts, out
+
+
+@pytest.mark.parametrize("k,eps,early_exit", [(10, 0.5, False),
+                                              (3, 0.1, True)])
+def test_cohort_on_the_card_matches_cpu(cuda, k, eps, early_exit):
+    """The cohort ladder on the card retires the same rows per stage as on
+    the CPU, with the same tie-expanded id sets, and launches K3."""
+    sources = np.random.default_rng(5).integers(0, 2048, 24)
+    outs = []
+    for dev in ("cpu", cuda):
+        ds = synthetic_powerlaw(2048, 8, seed=3, dense_threshold=0,
+                                device=dev)
+        algo = ForaTopk(ds, ALPHA, k, early_exit=early_exit)
+        before = row_gather.segment_sum_launches
+        outs.append((*_cohorts(algo, sources, k, eps), algo.last_iters,
+                     row_gather.segment_sum_launches - before))
+    (ccoh, crows, cit, _), (gcoh, grows, git, launched) = outs
+    assert gcoh == ccoh and git == cit and grows == crows
+    assert launched >= git
+
+
+def test_batch_early_exit_on_the_card_matches_cpu(cuda):
+    sources = np.random.default_rng(5).integers(0, 2048, 24)
+    iters = []
+    for dev in ("cpu", cuda):
+        ds = synthetic_powerlaw(2048, 8, seed=3, dense_threshold=0,
+                                device=dev)
+        algo = ForaTopk(ds, ALPHA, 1, early_exit=True)
+        algo.compute_topk_ids_batch(sources, 1, 0.5)
+        iters.append(algo.last_iters)
+    assert iters[0] == iters[1] > 0
+
+
+def test_server_on_the_card_gives_the_service_rows(cuda):
+    """The dispatcher thread launches on the graph's card and on that
+    card's default stream, and its rows are the service's for the batch it
+    dispatches."""
+    ds = synthetic_powerlaw(2048, 8, seed=3, dense_threshold=0, device=cuda)
+    svc = PPRService.from_dataset(ds, k=10, hub_split=128)
+    seen = []
+
+    class Spy:
+        n_nodes = svc.n_nodes
+
+        def top_k(self, sources, k=None, eps=None):
+            seen.append((threading.current_thread().name,
+                         torch.cuda.current_device(),
+                         torch.cuda.current_stream().cuda_stream))
+            return svc.top_k(sources, k=k, eps=eps)
+
+    sources = [3, 14, 50, 7, 3]
+    want = svc.top_k(sources + [sources[0]] * 3)[: len(sources)]
+    before = row_gather.segment_sum_launches
+    with PPRBatchServer(Spy(), max_batch=64, prewarm=True) as server:
+        rows = [f.result(timeout=120)
+                for f in [server.submit(s) for s in sources]]
+    assert row_gather.segment_sum_launches > before
+    assert seen[-1] == ("ppr-batch-dispatch", ds.graph.device.index or 0,
+                        torch.cuda.default_stream(cuda).cuda_stream)
+    for got, w in zip(rows, want):
+        assert [h.node for h in got] == [h.node for h in w]
+        np.testing.assert_allclose([h.score for h in got],
+                                   [h.score for h in w], rtol=1e-6)
+
+
+def test_cohort_server_on_the_card_streams_the_service_rows(cuda):
+    """``PPRService(cohort=True)`` on the card behind the server: the
+    dispatcher runs ``top_k_stream``, and each caller gets its own
+    source's row, the ids of the CPU service's stream of the same
+    sources (rows are independent of their co-tenants)."""
+    sources = [int(s) for s in np.random.default_rng(5).integers(0, 2048, 24)]
+    want = {}
+
+    def keep(idxs, rows):
+        for i, row in zip(idxs, rows):
+            want[sources[int(i)]] = {h.node for h in row}
+
+    cpu = PPRService.from_dataset(
+        synthetic_powerlaw(2048, 8, seed=3, dense_threshold=0, device="cpu"),
+        k=10, cohort=True)
+    cpu.top_k_stream(sources, emit=keep)
+    svc = PPRService.from_dataset(
+        synthetic_powerlaw(2048, 8, seed=3, dense_threshold=0, device=cuda),
+        k=10, cohort=True)
+    before = row_gather.segment_sum_launches
+    with PPRBatchServer(svc, max_batch=64, prewarm=True) as server:
+        rows = [f.result(timeout=120)
+                for f in [server.submit(s) for s in sources]]
+    assert row_gather.segment_sum_launches > before
+    for s, got in zip(sources, rows):
+        assert {h.node for h in got} == want[s]

@@ -37,12 +37,16 @@ MODULES = [
     "ppr_tpu_torch.utils.report",
     "ppr_tpu_torch.utils.timer",
     "ppr_tpu_torch.utils.cuda_timing",
+    "ppr_tpu_torch.utils.cpu_fora",
     "ppr_tpu_torch.service",
+    "ppr_tpu_torch.serving",
     "ppr_tpu_torch.harness",
     "ppr_tpu_torch.cli",
     "chip_smoke",
     "dense_power_ablation",
     "row_gather_ablation",
+    "bench_torch",
+    "serving_latency_torch",
 ]
 
 _PROBE = """
