@@ -39,7 +39,13 @@ script exits non-zero:
    push, B 50) and by-source (backward push, B 50 and BASE's batch of
    512 targets) edge orders; then ``row_gather`` at P1's shape and P4's
    four configurations, in ns a row beside ``index_select`` (P4's
-   ``gather_accum`` is K3 beside ``index_add_``);
+   ``gather_accum`` is K3 beside ``index_add_``); then ``[walk]``, the
+   walk engine (``weighted_walk_counts``, 2^22 walkers on the bench
+   graph) in walks/s with the phase compaction and without it, its mass
+   checked, and ``[calibrate]``, ``calibrate.measure`` three times on the
+   bench graph beside the H100 constants in the code, and the path FORA
+   top-k's cost model picks at every serving rung (the annealed loop at B
+   2048, checked);
 7. the serving path: the oracle (``PowerMethod``, through K1) on the
    GOT-scale graph; FORA top-k serving (``PPRService.top_k``) there,
    precision@10 against that oracle; and the benchmark size (65,536
@@ -88,13 +94,26 @@ script exits non-zero:
    held to a bar: the Neo4j rows to fixed bars, the Forward Push and
    BASE rows to the JAX package's values for the same command on the CPU
    (``JAX_ROWS``). A Neo4j store is read back against a direct K2 launch,
-   and a Forward Push store against a direct push.
+   and a Forward Push store against a direct push;
+11. the walk path: ``[mc:bench]`` (Monte-Carlo on the bench graph, 4
+   sources at eps 0.5, 9.27M walks a source, mean max-err < 0.05 against
+   the power method), ``[fora:walks]`` (``ForaTopk(push="reference")``
+   with walk and propagation completion at B 64: rounds, walkers a round,
+   ms, precision@10 > 0.9 and NDCG > 0.97; ``ForaWholeGraph`` with both
+   completions: push rounds, ms, mean max-err < 0.03) and
+   ``[protocol:walks]`` (the CLI with ``--fora-completion walks`` on the
+   GOT-scale graph at seeds 0-2, Monte-Carlo, FORA whole-graph and FORA
+   top-k, Tests 1-3, and on the ca-GrQc stand-in, FORA whole-graph and
+   top-k, Tests 1-2, under ``auto`` and ``walks``): each row held to the
+   JAX package's CPU row of the same command and seed (``WALK_JAX_ROWS``;
+   max-err <= 1.5 x JAX's + 1e-4, precision >= JAX's - 0.05).
 
 Launch counts are reset before the serving path (7) and read after it,
-and again before and after the serving layer (9) and the protocol path
-(10); a reset also forgets the probe, so each path runs K0 once before its
-first hand kernel. The last three lines are the kernels' JSON record
-(``launches`` summed over the three paths; ``row_gather`` is a
+and again before and after the serving layer (9), the protocol path (10)
+and the walk path (11); a reset also forgets the probe, so each path runs
+K0 once before its first hand kernel. The last three lines are the
+kernels' JSON record (``launches`` summed over the four paths;
+``row_gather`` is a
 microbenchmark, as P1-P4 were on the TPU, so no path launches it; ``ms``,
 ``plain_ms``, ``library_ms``, ``bound_ms`` and ``bound_by`` at one shape
 each, and ``shapes`` with every shape's), the card line, and
@@ -179,6 +198,183 @@ JAX_ROWS = {
     },
 }
 
+
+# The JAX package's rows for the walk protocol commands on the CPU
+# (JAX_PLATFORMS=cpu python -m ppr_tpu.cli --query 50 --k 10 and: --db
+# synth:107x3@7 --sweep got --tests 1,2,3 --algos MC,FORA_WHOLE_GRAPH,
+# FORA_TOPK --fora-completion walks --seed 0|1|2; --db synth:grqc --tests
+# 1,2 --algos FORA_WHOLE_GRAPH,FORA_TOPK --fora-completion auto|walks):
+# max-err for Tests 1 and 3, precision for Test 2, by sweep value. The
+# bars: max-err <= 1.5 x JAX's + 1e-4, precision >= JAX's - 0.05 (the
+# draws differ between the packages, and the push rounds follow each
+# one's cost model). Monte-Carlo on grqc is left out: at the sweep's eps
+# it is billions of walks a test on the JAX CPU side.
+WALK_JAX_ROWS = {
+    ("got", 0): {
+        (1, "FORA_WHOLE_GRAPH"): {
+            "10.0": 0.02730412738630548,
+            "5.0": 0.016191387739963828,
+            "0.5": 0.0022686132974922657,
+            "0.1": 0.0004243522882461548,
+            "0.05": 0.00022149592638015747,
+        },
+        (1, "MC"): {
+            "1.0": 0.010360846035182477,
+            "0.5": 0.005613534543663264,
+            "0.3": 0.003127139285206795,
+            "0.1": 0.0012548169307410716,
+            "0.05": 0.0010724355839192867,
+        },
+        (2, "FORA_TOPK"): {
+            "10.0": 0.81,
+            "5.0": 0.8859999999999999,
+            "0.5": 0.9841818181818183,
+            "0.1": 0.998,
+            "0.05": 0.998,
+        },
+        (2, "MC"): {
+            "1.0": 0.938,
+            "0.5": 0.9721818181818181,
+            "0.3": 0.9741818181818183,
+            "0.1": 0.980909090909091,
+            "0.05": 0.996,
+        },
+        (3, "FORA_WHOLE_GRAPH"): {
+            "10.0": 0.0264117590803653,
+            "5.0": 0.014999464605934917,
+            "0.5": 0.0022262827306985854,
+            "0.1": 0.0004321125149726868,
+            "0.05": 0.00022086620330810547,
+        },
+        (3, "MC"): {
+            "1.0": 0.011322392020374536,
+            "0.5": 0.00499856136739254,
+            "0.3": 0.00329219663515687,
+            "0.1": 0.0011912510171532631,
+            "0.05": 0.0014043285697698594,
+        },
+    },
+    ("got", 1): {
+        (1, "FORA_WHOLE_GRAPH"): {
+            "10.0": 0.028644241406582296,
+            "5.0": 0.015400124713778496,
+            "0.5": 0.002072601765394211,
+            "0.1": 0.0004391062259674072,
+            "0.05": 0.00022046834230422972,
+        },
+        (1, "MC"): {
+            "1.0": 0.010328279249370098,
+            "0.5": 0.005444011185318232,
+            "0.3": 0.0032218361273407938,
+            "0.1": 0.0012013855203986167,
+            "0.05": 0.0011477410420775414,
+        },
+        (2, "FORA_TOPK"): {
+            "10.0": 0.8016363636363636,
+            "5.0": 0.8732727272727273,
+            "0.5": 0.9901818181818183,
+            "0.1": 0.9963636363636365,
+            "0.05": 1.0,
+        },
+        (2, "MC"): {
+            "1.0": 0.9205454545454544,
+            "0.5": 0.9620000000000001,
+            "0.3": 0.972,
+            "0.1": 0.986181818181818,
+            "0.05": 0.9981818181818182,
+        },
+        (3, "FORA_WHOLE_GRAPH"): {
+            "10.0": 0.027976125266868622,
+            "5.0": 0.015980213270522653,
+            "0.5": 0.002265413082204759,
+            "0.1": 0.00044144511222839357,
+            "0.05": 0.00023924797773361206,
+        },
+        (3, "MC"): {
+            "1.0": 0.011403322033584119,
+            "0.5": 0.005278795920312405,
+            "0.3": 0.0031488263607025147,
+            "0.1": 0.0011967115476727486,
+            "0.05": 0.0009281713329255581,
+        },
+    },
+    ("got", 2): {
+        (1, "FORA_WHOLE_GRAPH"): {
+            "10.0": 0.02897922755219042,
+            "5.0": 0.017025375124067068,
+            "0.5": 0.0020814194902777673,
+            "0.1": 0.0004184207320213318,
+            "0.05": 0.00023182809352874755,
+        },
+        (1, "MC"): {
+            "1.0": 0.011833365261554717,
+            "0.5": 0.005006887912750244,
+            "0.3": 0.0035585316084325315,
+            "0.1": 0.001264622826129198,
+            "0.05": 0.000939648412168026,
+        },
+        (2, "FORA_TOPK"): {
+            "10.0": 0.8009090909090909,
+            "5.0": 0.9023636363636364,
+            "0.5": 0.9880000000000001,
+            "0.1": 0.9945454545454546,
+            "0.05": 0.9925454545454545,
+        },
+        (2, "MC"): {
+            "1.0": 0.9481818181818181,
+            "0.5": 0.9701818181818181,
+            "0.3": 0.9761818181818183,
+            "0.1": 0.9829090909090908,
+            "0.05": 0.9961818181818183,
+        },
+        (3, "FORA_WHOLE_GRAPH"): {
+            "10.0": 0.029912520293146373,
+            "5.0": 0.01594538785255281,
+            "0.5": 0.002134060487151146,
+            "0.1": 0.0004832741618156433,
+            "0.05": 0.0002361878752708435,
+        },
+        (3, "MC"): {
+            "1.0": 0.010316955717280507,
+            "0.5": 0.005720281451940537,
+            "0.3": 0.003554091230034828,
+            "0.1": 0.0012210742756724358,
+            "0.05": 0.0010930170863866805,
+        },
+    },
+    ("grqc", "auto"): {
+        (1, "FORA_WHOLE_GRAPH"): {
+            "10.0": 0.0069366940855979916,
+            "5.0": 0.005059162080287933,
+            "0.5": 4.402697086334228e-06,
+            "0.1": 8.702278137207031e-07,
+            "0.05": 4.6342611312866213e-07,
+        },
+        (2, "FORA_TOPK"): {
+            "10.0": 0.966,
+            "0.5": 1.0,
+            "0.1": 1.0,
+            "0.01": 1.0,
+            "0.001": 1.0,
+        },
+    },
+    ("grqc", "walks"): {
+        (1, "FORA_WHOLE_GRAPH"): {
+            "10.0": 0.0069366940855979916,
+            "5.0": 0.005059162080287933,
+            "0.5": 0.0009132426977157593,
+            "0.1": 0.0002177491784095764,
+            "0.05": 0.00011450469493865966,
+        },
+        (2, "FORA_TOPK"): {
+            "10.0": 0.9781818181818183,
+            "0.5": 0.9961818181818181,
+            "0.1": 0.9981818181818182,
+            "0.01": 1.0,
+            "0.001": 1.0,
+        },
+    },
+}
 
 def check(ok: bool, msg: str) -> None:
     if not ok:
@@ -691,24 +887,34 @@ class EngineSpy:
     """Records each call of the engine behind a real ``PPRService``, one
     layer below ``top_k`` / ``top_k_stream``: its width, seconds, thread,
     card, stream and number of distinct sources, and per stream the
-    cohorts' row indices. The rows a caller gets are read from the futures,
-    not from here."""
+    cohorts' row indices. ``walked`` holds the sources of the calls where
+    FORA's cost model took the push+walk rounds (their rows are sampled).
+    The rows a caller gets are read from the futures, not from here."""
 
     def __init__(self, svc):
         algo = svc._topk_algo
         self.calls = []
         self.streams = []
+        self.walked = set()
+        self.walk_calls = 0
         batch = algo.compute_topk_ids_batch
         cohorts = getattr(algo, "compute_topk_ids_cohorts", None)
 
+        def note_path(sources, width, k, param, *args, **kwargs):
+            if not algo._skip_push(float(param) * 0.5, width):
+                self.walk_calls += 1
+                self.walked.update(int(s) for s in sources)
+
         def compute_topk_ids_batch(sources, *args, **kwargs):
             t0 = time.perf_counter()
+            note_path(sources, max(len(sources), 8), *args)
             out = batch(sources, *args, **kwargs)
             self._note(sources, t0)
             return out
 
         def compute_topk_ids_cohorts(sources, *args, **kwargs):
             t0 = time.perf_counter()
+            note_path(sources, len(sources), *args)
             seen = []
             for idxs, vals, ids in cohorts(sources, *args, **kwargs):
                 seen.append(np.asarray(idxs))
@@ -897,9 +1103,12 @@ def serving_layer(dev, ds, svc, sources, oracle, bench) -> dict[str, int]:
               f"prewarm probed {distinct} distinct sources at width {width}")
     for w in rungs:
         first, second = firsts[w][:2]
+        path = ("annealed" if svc._topk_algo._skip_push(EPS * 0.5, w)
+                else "push+walks")
         print(f"[serving:prewarm] rung {w:4d}: first call {first:9.1f} ms, "
               f"second {second:8.1f} ms ({w / second * 1e3:7.1f} rows/s); "
-              f"EWMA seed {server._svc_time_ms[w]:.1f} ms")
+              f"EWMA seed {server._svc_time_ms[w]:.1f} ms; the cost "
+              f"model's path: {path}")
     print(f"[serving:prewarm] 9 rungs 8..2048 prewarmed in {prewarm_s:.1f} s "
           f"on the main thread; sources spread over n_nodes={svc.n_nodes} "
           f"(rung w probes w distinct nodes); K0 launched once, before the "
@@ -931,7 +1140,8 @@ def serving_layer(dev, ds, svc, sources, oracle, bench) -> dict[str, int]:
           f"futures returned for the {n_acc} oracle sources in the streams: "
           f"{prec:.4f} (tie tol {tol:.3e}, on the oracle's side); every "
           f"dispatch ran on thread ppr-batch-dispatch, card {index}, the "
-          f"default stream")
+          f"default stream; {spy.walk_calls} engine calls (prewarm "
+          f"included) took the push+walk rounds")
     print(f"[serving:open-loop] warm EWMAs after the runs: " + ", ".join(
         f"{w}: {t:.1f} ms" for w, t in sorted(server._svc_time_ms.items())))
     server.close()
@@ -977,10 +1187,15 @@ def serving_layer(dev, ds, svc, sources, oracle, bench) -> dict[str, int]:
     served_hits = {}
     for s, fut in csent:
         served_hits.setdefault(s, fut.result(timeout=300))
-    solo_rows = list(dict.fromkeys(pool))[:16]
+    # a row's cohort trajectory is the annealed per-row loop's: rows that
+    # a push+walks dispatch served are samples, and the solo runs take
+    # that loop explicitly (at B 1 the cost model picks push+walks)
+    solo_rows = [s for s in dict.fromkeys(pool)
+                 if s not in cspy.walked][:16]
     check(all(s in served_hits for s in solo_rows),
           "a row to hold against its solo run was not served")
     max_rel, exact = 0.0, 0
+    csvc._topk_algo.push = "none"
     for s in solo_rows:
         solo = []
         csvc.top_k_stream([s], emit=lambda idxs, hits: solo.extend(hits))
@@ -993,6 +1208,7 @@ def serving_layer(dev, ds, svc, sources, oracle, bench) -> dict[str, int]:
         top = max(score.values())
         max_rel = max(max_rel, max(abs(h.score - score[h.node]) / top
                                    for h in got))
+    csvc._topk_algo.push = "auto"
     # a full-width dispatch both ways, in turns: the work a stream saves
     full = {"batch": [], "cohort": []}
     for _ in range(3):
@@ -1005,7 +1221,10 @@ def serving_layer(dev, ds, svc, sources, oracle, bench) -> dict[str, int]:
             torch.cuda.synchronize()
             full[mode].append((time.perf_counter() - t0) * 1e3)
     print(f"[serving:cohort] 16 served hit lists against solo "
-          f"``top_k_stream`` runs of their sources: ids equal on all 16; "
+          f"``top_k_stream`` runs of their sources on the annealed loop "
+          f"({cspy.walk_calls} engine calls took the push+walk rounds; "
+          f"their {len(cspy.walked)} sources are not among the 16): ids "
+          f"equal on all 16; "
           f"bit-equal on {exact}; largest score difference {max_rel:.2e} of "
           f"the row's top score; precision@10 of {n_cprec} served rows "
           f"{cprec:.4f} (tie tol {tol:.3e}); B={len(sources)} in turns, ms: "
@@ -1370,6 +1589,242 @@ def protocol_path(dev, k2_b128_ms: float) -> dict[str, int]:
     return counts
 
 
+def walk_phase(dev, g) -> dict:
+    """``[walk]``: ``weighted_walk_counts`` on the bench graph, 2^22
+    walkers from seeded starts, with the phase compaction (16 steps, a
+    factor 4) and without it (``compact_factor=1``), in turns after one
+    untimed call of each: walks/s of the median of three, and the mass
+    (it must be 1 within f32)."""
+    import torch
+
+    from ppr_tpu_torch.ops.walk import weighted_walk_counts
+
+    w = 1 << 22
+    starts = torch.as_tensor(np.random.default_rng(0).integers(0, g.n, w),
+                             dtype=torch.int32, device=dev)
+    rows = torch.zeros(w, dtype=torch.int64, device=dev)
+    weights = torch.full((w,), 1.0 / w, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    times = {4: [], 1: []}
+    for i, cf in enumerate((4, 1, 4, 1, 1, 4, 4, 1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counts = weighted_walk_counts(g, starts, rows, weights, gen, ALPHA,
+                                      1, compact_factor=cf)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times[cf].append(time.perf_counter() - t0)
+        mass = float(counts.sum())
+        check(abs(mass - 1.0) <= 1e-6 and not counts[:, g.n:].any(),
+              f"[walk] compact_factor {cf}: mass {mass} is not 1")
+    out = {cf: w / float(np.median(t)) for cf, t in times.items()}
+    print(f"[walk] weighted_walk_counts on the bench graph, {w} walkers "
+          f"from seeded starts: {out[4]:.4g} walks/s with the compaction "
+          f"(16 steps, factor 4), {out[1]:.4g} without (compact_factor=1); "
+          f"ms of each call {', '.join(f'{t * 1e3:.2f}' for t in times[4])}"
+          f" and {', '.join(f'{t * 1e3:.2f}' for t in times[1])}; mass 1 "
+          f"within 1e-6 in every call")
+    return out
+
+
+def path_choices(algo, widths) -> list:
+    """``(width, walk_ns, spmv_ns, annealed)`` of FORA top-k's path choice
+    at the bench query (k 10, eps 0.5) for each batch width."""
+    import math
+
+    eps = EPS * 0.5
+    omega0 = (eps + 2.0) * math.log(2.0 / algo.pfail) / eps / eps \
+        / algo.delta0
+    return [(b, algo.avg_rand_walk_time_ns * omega0,
+             algo._spmv_completion_ns(1.0, eps * algo.delta0, b),
+             algo._skip_push(eps, b)) for b in widths]
+
+
+def calibrate_phase(dev, ds) -> dict:
+    """``[calibrate]``: ``calibrate.measure`` on the bench graph three
+    times; the constants in the code beside them; the path FORA top-k
+    takes at the bench query for every serving rung, with either set. At
+    B 2048 both must pick the annealed loop."""
+    from ppr_tpu_torch.models.fora import ForaTopk, _default_cost_constants
+    from ppr_tpu_torch.utils import calibrate
+
+    runs = []
+    for i in range(3):
+        runs.append(calibrate.measure(ds.graph, alpha=ALPHA))
+        print(f"[calibrate] measure #{i}: {runs[-1][0]:.1f} ns a walk, "
+              f"{runs[-1][1]:.4f} ns an edge of a sweep (the batch's), "
+              f"device-to-host {runs[-1][3] / 1e9:.3f} GB/s")
+    med = (float(np.median([r[0] for r in runs])),
+           float(np.median([r[1] for r in runs])), True,
+           float(np.median([r[3] for r in runs])))
+    code = _default_cost_constants(dev)
+    print(f"[calibrate] median {med[0]:.1f} ns a walk, {med[1]:.4f} ns an "
+          f"edge, {med[3] / 1e9:.3f} GB/s; the code's H100 constants "
+          f"{code[0]} ns, {code[1]} ns, amortized {code[2]}, "
+          f"{code[3] / 1e9:.3f} GB/s")
+    rungs = [8 << i for i in range(9)]
+    ours = ForaTopk(ds, ALPHA, K)
+    measured = ForaTopk(ds, ALPHA, K)
+    calibrate.apply(measured, med)
+    out = {}
+    for (b, walk, spmv, annealed), (_, mwalk, mspmv, mannealed) in zip(
+            path_choices(ours, rungs), path_choices(measured, rungs)):
+        out[b] = annealed
+        print(f"[calibrate] B {b:4d}: walks {walk / 1e3:.1f} us vs "
+              f"propagation {spmv / 1e3:.1f} us a query -> "
+              f"{'annealed' if annealed else 'push+walks'} (code's "
+              f"constants); {mwalk / 1e3:.1f} vs {mspmv / 1e3:.1f} us -> "
+              f"{'annealed' if mannealed else 'push+walks'} (this run's)")
+    check(out[2048] and measured._skip_push(EPS * 0.5, 2048),
+          "[calibrate] the cost model does not pick the annealed loop at "
+          "B 2048")
+    return {"runs": runs, "median": med, "annealed": out}
+
+
+def check_walk_rows(tag, rows, jax_rows) -> None:
+    """Hold each row to the JAX package's CPU row of the same command and
+    seed: max-err (Tests 1 and 3) <= 1.5 x JAX's + 1e-4, precision (Test
+    2) >= JAX's - 0.05; every JAX row present, every number finite, every
+    store non-empty."""
+    seen = set()
+    for (test, algo), section in sorted(rows.items()):
+        for fields in section:
+            check(all(np.isfinite(float(x)) for x in fields),
+                  f"[protocol:{tag}] {test} {algo} {fields}: not finite")
+            if test == 3:
+                check(int(fields[3]) > 0,
+                      f"[protocol:{tag}] empty store: {fields}")
+            got = float(fields[-2] if test == 2 else fields[-1])
+            want = jax_rows.get((test, algo), {}).get(fields[0])
+            what = "precision" if test == 2 else "max-err"
+            if want is None:
+                print(f"[protocol:{tag}] test {test} {algo} param "
+                      f"{fields[0]}: {what} {got:.6g} (no JAX row)")
+                continue
+            seen.add((test, algo, fields[0]))
+            ok = got >= want - 0.05 if test == 2 else \
+                got <= 1.5 * want + 1e-4
+            ms = {1: f"{fields[1]} ms/query", 2: f"{fields[2]} ms/query",
+                  3: f"prep {fields[2]} ms"}[test]
+            print(f"[protocol:{tag}] test {test} {algo} param {fields[0]}: "
+                  f"{what} {got:.6g}, JAX {want:.6g}; {ms}")
+            check(ok, f"[protocol:{tag}] test {test} {algo} {fields[0]}: "
+                  f"{what} {got} against JAX's {want}")
+    missing = {(t, a, v) for (t, a), vals in jax_rows.items()
+               for v in vals} - seen
+    check(not missing, f"[protocol:{tag}] rows missing: {sorted(missing)}")
+
+
+def walk_path(dev, ds, hs) -> dict[str, int]:
+    """Monte-Carlo, FORA's push+walk rounds and FORA whole-graph on the
+    bench graph, then the protocol CLI with the walk completions; returns
+    the path's launch counts."""
+    import torch
+
+    from ppr_tpu_torch.models.fora import ForaTopk, ForaWholeGraph
+    from ppr_tpu_torch.models.monte_carlo import MonteCarlo, mc_num_walks
+    from ppr_tpu_torch.models.power_method import power_method_batch
+    from ppr_tpu_torch.ops.topk import topk_ids_with_ties
+    from ppr_tpu_torch.utils.metrics import max_abs_err, ndcg_at_k
+
+    reset_launches()
+    g = ds.graph
+    rng = np.random.default_rng(11)
+
+    # --- [mc:bench] -------------------------------------------------------
+    src4 = rng.integers(0, g.n, 4)
+    oracle4 = power_method_batch(g, src4.astype(np.int32), ALPHA, ITERS) \
+        .cpu().numpy()
+    mc = MonteCarlo(ds, ALPHA, seed=1)
+    omega = mc_num_walks(EPS, mc.delta, mc.pfail)
+    mc.compute_whole_graph_batch(src4[:1], EPS)           # untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = mc.compute_whole_graph_batch(src4, EPS)
+    dt = time.perf_counter() - t0
+    err = float(np.mean([max_abs_err(scores[i], oracle4[i])
+                         for i in range(4)]))
+    mass = scores.sum(axis=1)
+    print(f"[mc:bench] Monte-Carlo on the bench graph, 4 sources, eps {EPS}: "
+          f"{omega} walks a source in chunks of {mc._source_chunk(EPS)}; "
+          f"{dt * 1e3 / 4:.1f} ms a query ({4 * omega / dt:.4g} walks/s); "
+          f"mean max-err {err:.4f} against the {ITERS}-iteration power "
+          f"method; row mass {mass.min():.7f}..{mass.max():.7f}")
+    check(err < 0.05, f"[mc:bench] mean max-err {err} >= 0.05")
+    check(np.abs(mass - 1.0).max() <= 1e-5, f"[mc:bench] row mass {mass}")
+
+    # --- [fora:walks] -----------------------------------------------------
+    src = rng.integers(0, g.n, 64)
+    oracle = power_method_batch(g, src.astype(np.int32), ALPHA, ITERS) \
+        .cpu().numpy()
+    for completion in ("walks", "spmv"):
+        algo = ForaTopk(ds, ALPHA, K, seed=7, push="reference",
+                        completion=completion)
+        algo.hub_split = hs
+        algo.compute_topk_batch(src, K, EPS)               # untimed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = algo.compute_topk_batch(src, K, EPS)
+        dt = time.perf_counter() - t0
+        gnd = [topk_ids_with_ties(oracle[i], K) for i in range(64)]
+        ids = [topk_ids_with_ties(scores[i], K) for i in range(64)]
+        prec = precision(oracle, ids)
+        ndcg = float(np.mean([ndcg_at_k(ids[i], gnd[i], oracle[i])
+                              for i in range(64)]))
+        print(f"[fora:walks] ForaTopk(push='reference', completion="
+              f"'{completion}') B 64 eps {EPS} k {K}: {algo.last_iters} "
+              f"rounds, walkers a round {algo.last_round_walks or 'none'}; "
+              f"{dt * 1e3:.1f} ms a batch; precision@10 {prec:.4f}, NDCG "
+              f"{ndcg:.4f}")
+        check(prec > 0.9 and ndcg > 0.97, f"[fora:walks] top-k "
+              f"{completion}: precision {prec}, NDCG {ndcg}")
+    for completion in ("walks", "spmv"):
+        algo = ForaWholeGraph(ds, ALPHA, seed=7, completion=completion)
+        algo.hub_split = hs
+        algo.compute_whole_graph_batch(src, EPS)           # untimed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = algo.compute_whole_graph_batch(src, EPS)
+        dt = time.perf_counter() - t0
+        err = float(np.mean([max_abs_err(scores[i], oracle[i])
+                             for i in range(64)]))
+        print(f"[fora:walks] ForaWholeGraph(completion='{completion}') B 64 "
+              f"eps {EPS}: {algo.last_rounds} push rounds "
+              f"({algo.last_push_ns / 1e3:.1f} us a query); "
+              f"{dt * 1e3:.1f} ms a batch; mean max-err {err:.3e}")
+        check(err < 0.03, f"[fora:walks] whole-graph {completion}: mean "
+              f"max-err {err}")
+
+    # --- [protocol:walks] -------------------------------------------------
+    for seed in (0, 1, 2):
+        rows, wall, _ = run_protocol(f"walks_got_s{seed}", [
+            "--db", "synth:107x3@7", "--sweep", "got", "--query", "50",
+            "--k", str(K), "--tests", "1,2,3", "--seed", str(seed),
+            "--algos", "MC,FORA_WHOLE_GRAPH,FORA_TOPK",
+            "--fora-completion", "walks"])
+        print(f"[protocol:walks] synth:107x3@7 --seed {seed} --fora-"
+              f"completion walks, MC, FORA_WHOLE_GRAPH, FORA_TOPK, Tests "
+              f"1-3: wall {wall:.1f} s")
+        check_walk_rows(f"walks:got:{seed}", rows,
+                        WALK_JAX_ROWS[("got", seed)])
+    for completion in ("auto", "walks"):
+        rows, wall, _ = run_protocol(f"walks_grqc_{completion}", [
+            "--db", "synth:grqc", "--query", "50", "--k", str(K),
+            "--tests", "1,2", "--algos", "FORA_WHOLE_GRAPH,FORA_TOPK",
+            "--fora-completion", completion])
+        print(f"[protocol:walks] synth:grqc --fora-completion {completion}, "
+              f"FORA_WHOLE_GRAPH, FORA_TOPK, Tests 1-2: wall {wall:.1f} s")
+        check_walk_rows(f"walks:grqc:{completion}", rows,
+                        WALK_JAX_ROWS[("grqc", completion)])
+    counts = read_launches()
+    print(f"[protocol:walks] walk path launches: K3 {counts['k3']}, K1 "
+          f"{counts['k1']}, K0 {counts['k0']}")
+    check(counts["k3"] > 0, "the walk path did not launch K3")
+    check(counts["k1"] > 0, "the walk path's oracle did not launch K1")
+    check(counts["k0"] == 1, f"K0 ran {counts['k0']} times, not once")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1470,6 +1925,10 @@ def main() -> int:
         flush=True, slabs=True)
     del table, ablation_libs
 
+    # --- the walk engine and the cost model's constants --------------------
+    walk_phase(dev, ds.graph)
+    costs = calibrate_phase(dev, ds)
+
     # --- launch counts: the serving path from here on --------------------
     reset_launches()
 
@@ -1510,10 +1969,15 @@ def main() -> int:
     dt = time.perf_counter() - t0
     sweeps = algo.last_iters
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    annealed = algo._skip_push(EPS * 0.5, len(sources))
     print(f"[bench] B=2048 k={K} eps={EPS} H=4096 bf16: top_k "
           f"{dt * 1e3:.1f} ms = {len(sources) / dt:.1f} qps, sweeps "
           f"{sweeps} ({dt * 1e3 / sweeps:.2f} ms/sweep incl. epilogue), "
-          f"warm-up call {warm_s:.2f} s, peak device memory {peak_gb:.2f} GB")
+          f"warm-up call {warm_s:.2f} s, peak device memory {peak_gb:.2f} "
+          f"GB; push={algo.push!r}: the cost model's path at B 2048 is "
+          f"{'the annealed loop' if annealed else 'push+walks'}")
+    check(annealed and costs["annealed"][2048],
+          "[bench] the cost model left the annealed loop at B 2048")
     out_deg = ds.graph.out_deg.cpu().numpy()
     check(len(hits) == len(sources) and all(
         len(h) >= K or out_deg[s] == 0 for h, s in zip(hits, sources)),
@@ -1569,9 +2033,13 @@ def main() -> int:
     protocol = protocol_path(dev, next(
         sh["ms"] for sh in k2["shapes"] if sh["case"] == "b128"))
     check(protocol["k3"] > 0, "K3 was not launched on the protocol path")
-    launches = {k: serving[k] + layer[k] + protocol[k] for k in serving}
+
+    # --- 11. the walk path ------------------------------------------------
+    walks = walk_path(dev, ds, hs)
+    launches = {k: serving[k] + layer[k] + protocol[k] + walks[k]
+                for k in serving}
     print(f"[launches] serving path {serving}, serving layer {layer}, "
-          f"protocol path {protocol}")
+          f"protocol path {protocol}, walk path {walks}")
     source = "ppr_tpu_torch/csrc/dense_power.cu"
     print(json.dumps({"kernels": [{
         "name": "dense_power_iterations",

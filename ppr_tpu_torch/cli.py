@@ -11,13 +11,13 @@ sees no card exits with an error rather than run there.
 Usage::
 
     python -m ppr_tpu_torch.cli --db synth:107x3@7 --sweep got \\
-        --algos NEO4J_METHOD,FORA_TOPK,FWDPUSH,BASE_WHOLE_GRAPH
+        --algos MC,FORA_WHOLE_GRAPH,FORA_TOPK --fora-completion walks
 
-Ported: the Neo4j method, Forward Push and BASE (Tests 1-3) and FORA top-k
-(Test 2). Monte-Carlo and FORA whole-graph raise ``NotImplementedError``
-when their section is reached, so pass ``--algos``. A Neo4j store
-directory, ``--mesh`` and ``--fora-completion walks`` raise as well
-(ROADMAP.md, queue 1).
+All six algorithms run: Monte-Carlo, Forward Push, FORA whole-graph and
+top-k, BASE and the Neo4j method, with the power method as the oracle.
+``--fora-completion`` picks FORA's residue completion (``auto``: the cost
+model). A Neo4j store directory (ROADMAP.md, queue 1, item 15) and
+``--mesh`` (item 18) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -65,12 +65,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where <dataset>_AlgoPerfResults.txt is written")
     p.add_argument("--fora-completion", default="auto",
                    choices=["auto", "walks", "spmv"],
-                   help="FORA residual completion: auto and spmv run the "
-                        "port's push='none' FORA top-k; walks is not ported")
+                   help="FORA residual completion strategy (auto = cost "
+                        "model)")
     p.add_argument("--algos", default=None,
                    help="comma subset of algorithm names (AlgoType values, "
-                        "e.g. NEO4J_METHOD,FORA_TOPK) to run within each "
-                        "selected test; 'NEO4J_METHOD:2' skips the first 2 "
+                        "e.g. MC,NEO4J_METHOD) to run within each "
+                        "selected test; 'MC:2' skips the first 2 "
                         "params of its arrays (already-recorded rows)")
     p.add_argument("--tests", default="1,2,3",
                    help="comma subset of the three protocol tests to run "

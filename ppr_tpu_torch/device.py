@@ -31,6 +31,13 @@ def resolve_device(device=None) -> torch.device:
 default_device = resolve_device
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU), so that a
+    host clock read next covers it."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def set_exact_f32_matmul() -> None:
     """Full-f32 products for the dense operators and the oracle.
 

@@ -15,10 +15,11 @@ performance tests).
 BASE preprocesses in every test: its sweep value is the threshold, its
 ``param`` is -1, its store is keyed by ``(threshold, k or -1)``, its
 queries are store reads even in Test 3, and its store is not deleted
-after a test. An algorithm the port does not have yet (Monte-Carlo, FORA
-whole-graph) raises ``NotImplementedError`` when its section is reached
-(``--algos`` restricts a run to ported ones). A device mesh (ROADMAP.md,
-queue 1, item 18) and FORA's walk completion (item 11) raise as well.
+after a test. ``fora_completion`` goes to every algorithm with a
+``completion`` (both FORA algorithms), as in the JAX harness: ``auto``
+lets FORA's cost model choose, ``spmv`` and ``walks`` force a completion.
+A device mesh raises ``NotImplementedError`` (ROADMAP.md, queue 1, item
+18).
 
 Two timing modes: ``batched=True`` times all Q queries as one device batch
 (per-query time = batch time / Q); ``batched=False`` times each query
@@ -193,14 +194,9 @@ class PerfHarness:
                 "the sharded engines are not ported yet (ROADMAP.md, queue 1, "
                 "item 18)"
             )
-        if fora_completion == "walks":
-            raise NotImplementedError(
-                "FORA's walk completion is not ported yet (ROADMAP.md, "
-                "queue 1, item 11); 'auto' and 'spmv' run the port's "
-                "push='none' FORA top-k"
-            )
-        if fora_completion not in ("auto", "spmv"):
+        if fora_completion not in ("auto", "spmv", "walks"):
             raise ValueError(f"unknown FORA completion {fora_completion!r}")
+        self.fora_completion = fora_completion
         self.dataset = dataset
         self.alpha = alpha
         self.seed = seed
@@ -238,6 +234,8 @@ class PerfHarness:
     ) -> PerfResult:
         conf = AlgoConf(self.alpha, seed=self.seed)
         algo = conf.new_algo_obj(algo_type, self.dataset, k)
+        if hasattr(algo, "completion"):
+            algo.completion = self.fora_completion
         sources = self.get_query_nodes(query_num)
         oracle_rows = self._oracle_rows(sources)
         report = progress_printer(query_num, enabled=self.progress)

@@ -116,6 +116,16 @@ class PreprocessingMixin:
         root = os.path.join(self.prep_dirname, self.dataset.name, str(param))
         return PPRStore(root, n=self.graph.n_pad)
 
+    #: True while ``preprocessing`` or its warm-up runs: FORA's cost model
+    #: then prices the transfer of each row's entries to the host
+    _in_preprocessing = False
+
+    def _prep_batch(self, param, batch_size: int = 128) -> int:
+        """The source-batch height the sweep uses. Algorithms with a walker
+        budget a call clamp it (``MonteCarlo``); the warm-up and the resume
+        check use the same height."""
+        return batch_size
+
     def _prep_pending(self, param, batch_size: int = 128) -> bool:
         """True when ``preprocessing(param)`` would do device work: the
         store is finalized (a new run starts from scratch) or a batch shard
@@ -123,15 +133,20 @@ class PreprocessingMixin:
         store = self.make_store(param)
         if store._read_manifest().get("finalized"):
             return True
-        return any(not store.has_batch(s)
-                   for s in range(0, self.graph.n, batch_size))
+        bs = self._prep_batch(param, batch_size)
+        return any(not store.has_batch(s) for s in range(0, self.graph.n, bs))
 
     def preprocessing(self, threshold, param, *, batch_size: int = 128,
                       progress: bool = True) -> None:
+        batch_size = self._prep_batch(param, batch_size)
         store = self.make_store(param)
         store.reset()
         report = progress_printer(self.graph.n, enabled=progress)
-        self._preprocessing_sweep(store, param, batch_size, report)
+        self._in_preprocessing = True
+        try:
+            self._preprocessing_sweep(store, param, batch_size, report)
+        finally:
+            self._in_preprocessing = False
         store.finalize(alpha=self.alpha)
         self._store = store
 
@@ -166,7 +181,12 @@ class PreprocessingMixin:
         """Run one source batch through the path ``preprocessing`` times and
         discard it (the harness calls this untimed, as it warms queries):
         the first launch builds the kernels and fills the allocator."""
-        self._compact_batch(np.arange(min(batch_size, self.graph.n)), param)
+        n = min(self._prep_batch(param, batch_size), self.graph.n)
+        self._in_preprocessing = True
+        try:
+            self._compact_batch(np.arange(n), param)
+        finally:
+            self._in_preprocessing = False
 
     def attach_store(self, param) -> None:
         """Attach a store persisted earlier, to answer queries from it."""

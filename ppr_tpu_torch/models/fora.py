@@ -1,21 +1,43 @@
-"""FORA top-k serving — port of the ``push="none"`` path of
-``ppr_tpu/models/fora.py``.
+"""FORA, whole-graph and top-k — port of ``ppr_tpu/models/fora.py``.
 
-The top-k algorithm (Fora_Topk.java:102-184) anneals delta from 1/k down to
-1/n by /4 per round and stops once the k-th reserve is >= (1+eps')*delta.
-The serving path runs it as one loop of synchronous propagation sweeps
-(:func:`annealed_topk_propagate`): each sweep moves alpha*r into the reserve
-and pushes the rest; whenever the residue settles below ``eps'*delta`` the
-stopping rule is tested and delta anneals. There is no sampling, so the
-result is deterministic.
+* Whole-graph (Fora_Whole_Graph.java:82-146): rounds of forward push with
+  ``rmax`` halved each round while the push time a query stays below the
+  predicted completion time (:75-103); then the residue is completed,
+  either by the reference's walks (from every residual node v_i,
+  ``omega_i = ceil(r_i' * omega)`` no-zero-hop walks, each adding
+  ``r_i'/omega_i``, after ``alpha*r_i`` goes to v_i's reserve, :119-140)
+  or by deterministic propagation of the residue
+  (:func:`residual_propagate`). ``rmax0 = eps*sqrt(delta/(3 m
+  ln(2/pfail)))/(1-alpha)``, ``omega = (eps+2)*ln(2/pfail)/eps^2/delta``
+  (:86-87); delta = pfail = 1/n (Algo_Conf.java:47-49).
 
-The loop state (``delta``, ``finished``, the sweep count) lives on the
-device. A sweep after ``finished`` is set changes nothing, and the host
-reads ``finished`` once every ``CHECK_EVERY`` sweeps, so the loop does not
-wait on the card every sweep and still stops on exactly the sweep of the
-JAX package's ``lax.while_loop``. Unlike that loop, the port evaluates the
-stopping count on every sweep, settled or not: skipping it would need the
-host to read ``settled`` each sweep.
+* Top-k (Fora_Topk.java:102-184): eps' = eps/2 (:110); delta anneals from
+  1/k down to 1/n by /4 a round (:178). With ``push="reference"`` each
+  round runs the incremental forward push at ``rmax = eps'*sqrt(delta/(3
+  m ln(2/pfail))) * 3*sqrt(m*rmax)`` (:124, :133, the reference's
+  schedule), then completes the residue by walks (``omega_i = ceil(r_i *
+  W)``, ``W = omega * rsum * (1-alpha)``, each walk adding ``r_i/omega_i``,
+  :148-168) or by :func:`residual_propagate`, and stops once the k-th
+  reserve is >= (1+eps')*delta (:173-176). A round's completion is not
+  folded back into the push state (:142-168). ``push="none"`` skips the
+  pushes: one loop of synchronous propagation sweeps
+  (:func:`annealed_topk_propagate`) anneals delta whenever the residue
+  settles below ``eps'*delta``; no sampling, so the result is
+  deterministic. ``push="auto"``, the default, skips the pushes exactly
+  when the cost model picks propagation for the completion.
+
+The cost model (:class:`_ForaCostModel`) prices a walk and an edge of a
+propagation sweep; its constants are the JAX package's on the CPU and
+measured on the H100 by :mod:`~..utils.calibrate` on the card.
+
+The loop state of the propagation loops (``delta``, ``finished``, the
+sweep count) lives on the device. A sweep after ``finished`` is set
+changes nothing, and the host reads ``finished`` once every
+``CHECK_EVERY`` sweeps, so the loop does not wait on the card every sweep
+and still stops on exactly the sweep of the JAX package's
+``lax.while_loop``. Unlike that loop, the port evaluates the stopping
+count on every sweep, settled or not: skipping it would need the host to
+read ``settled`` each sweep.
 
 ``early_exit=True`` adds the JAX package's set-stability certificate,
 tested every ``EARLY_CHECK_EVERY`` sweeps: once ``kth(p) > (k+1)th(p) +
@@ -31,24 +53,29 @@ pow2 width of their count. The ladder is semantics here, not a shape
 cache: where a stage stops decides which rows share a cohort, and with
 ``early_exit`` on which sweeps a row's certificate is tested.
 
-Not ported yet: the push+walk rounds (``push="reference"``/``"auto"``),
-the cost model that chooses between them (``calibrate``) and FORA
-whole-graph (ROADMAP.md, queue 1, item 11).
+The walk pools are exactly the walks asked for: the JAX package's pow2
+pool buckets, traced row offsets and the walk-cap high-water mark
+(``PPR_TPU_WALK_CAP_FLOOR``) exist to share remote XLA compiles, and are
+left out.
 """
 
 from __future__ import annotations
 
 import math
 import sys
+import time
 
 import numpy as np
 import torch
 
+from ..device import synchronize
 from ..graph.csr import Graph
 from ..ops.hub_split import HubSplit, build_hub_split, push_out_hybrid_t
-from ..ops.push import apply_dangling_source_shortcircuit, forward_push_init
+from ..ops.push import (apply_dangling_source_shortcircuit, forward_push_init,
+                        forward_push_sweeps)
 from ..ops.spmv import push_out_chunked_t, push_out_t
-from .base import PPRAlgorithm
+from ..ops.walk import expand_walkers, weighted_walk_counts
+from .base import PPRAlgorithm, PreprocessingMixin
 
 #: total annealed-sweep budget of a top-k query, shared by the batch loop
 #: and the cohort ladder (as the JAX package)
@@ -58,6 +85,40 @@ CHECK_EVERY = 8
 #: sweeps between tests of the early-exit certificate (the JAX package's
 #: ``early_check_every``)
 EARLY_CHECK_EVERY = 8
+#: the walks of one call of :func:`_walk_contrib`: the chunked walk phase
+#: keeps each call's total below this, and so inside int32 (the JAX
+#: package's cumulative sum) and one walker pool
+_WALK_CHUNK_BUDGET = 1 << 28
+#: ``(n_pad, m_pad, dense, device, B, alpha)`` of every push that
+#: :class:`ForaWholeGraph` has warmed in this process (see there)
+_WARMED_PUSH_SHAPES: set = set()
+
+
+def _default_cost_constants(device) -> tuple[float, float, bool, float]:
+    """``(walk_ns_per_walk, spmv_ns_per_edge, batch_amortized,
+    d2h_bytes_per_s)`` for graphs on ``device``.
+
+    The CPU's are the JAX package's CPU constants (400 ns a walk, the
+    reference's own, Fora_Whole_Graph.java:35; 4 ns an edge, paid by every
+    row of a batch) and 4 GB/s to the host, so that the port picks the JAX
+    package's path for the same inputs. The card's were measured on the
+    H100 by :func:`~..utils.calibrate.measure` (``chip_smoke.py``'s
+    ``[calibrate]``); a sparse sweep there costs the batch once, whatever
+    its width (``batch_amortized``)."""
+    if torch.device(device).type == "cpu":
+        return 400.0, 4.0, False, 4e9
+    # calibrate.measure's defaults on synthetic_powerlaw(65536, 16,
+    # seed=42), the median of three (chip_smoke.py [calibrate]; NVIDIA H100
+    # 80GB HBM3, power limit 700.00 W)
+    return 299.3, 1.552, True, 5.75e9
+
+
+def _completion_iters(rsum: float, target: float, alpha: float) -> int:
+    """Propagation sweeps that take residue mass ``rsum`` below
+    ``target``."""
+    if rsum <= target or rsum <= 0:
+        return 0
+    return int(math.ceil(math.log(target / rsum) / math.log1p(-alpha)))
 
 
 def _pad_sources(sources, min_b: int = 8):
@@ -117,6 +178,48 @@ def _set_stable(p_t: torch.Tensor, r_t: torch.Tensor, k: int) -> torch.Tensor:
         return torch.ones(p_t.shape[1], dtype=torch.bool, device=p_t.device)
     vals = torch.topk(p_t, kk, dim=0).values               # [k+1, B]
     return vals[k - 1] > vals[kk - 1] + r_t.sum(dim=0)
+
+
+def residual_propagate(
+    g: Graph,
+    p: torch.Tensor,           # f32[B, n_pad]
+    r: torch.Tensor,           # f32[B, n_pad]
+    src_onehot: torch.Tensor,  # f32[B, n_pad]
+    target: float,             # stop once every row's residue sum <= target
+    alpha: float,
+    max_iters: int = 400,
+    hs: HubSplit | None = None,
+    num_chunks: int = 1,
+):
+    """Deterministic completion of the residue: propagation sweeps (``p +=
+    alpha*r``; ``r = push((1-alpha) r)`` with the dangling rows' share
+    back to each column's source, the Power_Method.java:55-100 step)
+    while the largest row sum of ``r`` is above ``target``, at most
+    ``max_iters`` sweeps. This computes exactly what FORA's walks estimate,
+    ``sum_i r_i * pi(v_i, .)``, up to the remaining residue. Returns ``(p,
+    r, iters)``, ``iters`` an int.
+
+    The JAX loop tests its condition before every sweep; here the test
+    runs on the device each sweep, a sweep whose test failed changes
+    nothing, and the host reads it every ``CHECK_EVERY`` sweeps, so the
+    loop stops on the JAX loop's sweep."""
+    alpha_f, keep, _, _ = _loop_constants(alpha, 0.0)
+    target = float(np.float32(target))
+    p_t = p.T.contiguous()
+    r_t = r.T.contiguous()
+    src_t = src_onehot.T.contiguous()
+    it = torch.zeros((), dtype=torch.int32, device=p.device)
+    live = r_t.sum(dim=0).max() > target
+    for sweep in range(max_iters):
+        if sweep % CHECK_EVERY == 0 and not bool(live):
+            break
+        # a sweep that is not live adds r * 0: p is unchanged bit for bit
+        p_t = torch.addcmul(p_t, r_t, live * alpha_f)
+        r_new = _push_residue(g, r_t, src_t, keep, hs, num_chunks)
+        r_t = torch.where(live, r_new, r_t)
+        it = it + live.to(torch.int32)
+        live = r_t.sum(dim=0).max() > target
+    return p_t.T, r_t.T, int(it)
 
 
 def annealed_topk_propagate(
@@ -253,36 +356,104 @@ def _device_topk_epilogue(g: Graph, sources: torch.Tensor, p: torch.Tensor,
     return torch.topk(p, kcap, dim=-1)
 
 
-class ForaTopk(PPRAlgorithm):
-    name = "FORA-Topk"
+def _walk_contrib(g: Graph, om: torch.Tensor, w: torch.Tensor,
+                  generator: torch.Generator, alpha: float,
+                  no_zero_hop: bool) -> torch.Tensor:
+    """``om[b, v]`` walks from node v in row b, each depositing ``w[b, v]``
+    at its stop node in row b: f32 ``[B, n_pad]``. The walker pool is
+    exactly ``sum(om)``."""
+    b, n_pad = om.shape
+    total = int(om.sum())
+    slots, _ = expand_walkers(om.reshape(-1), total)  # slot -> (row, node)
+    rows = torch.div(slots, n_pad, rounding_mode="floor")
+    starts = (slots - rows * n_pad).to(torch.int32)
+    return weighted_walk_counts(
+        g, starts, rows, w.reshape(-1).index_select(0, slots), generator,
+        alpha, num_rows=b, no_zero_hop=no_zero_hop)
+
+
+def _walk_contrib_chunked(g: Graph, om: torch.Tensor, w: torch.Tensor,
+                          generator: torch.Generator, alpha: float,
+                          no_zero_hop: bool) -> torch.Tensor:
+    """:func:`_walk_contrib` with each call's walk total below
+    ``_WALK_CHUNK_BUDGET``.
+
+    The row totals are estimated from f32 row sums (a magnitude, for the
+    split decisions only). When the estimate exceeds the budget, rows go in
+    consecutive groups whose estimate fits (with a 1% margin), and a group
+    whose single rows are too large in ``passes`` integer parts that sum
+    exactly to ``om``: each walk keeps its weight, so the passes partition
+    the same walks. Groups and passes hold exactly their rows; the JAX
+    package's pow2 group heights and traced offsets are left out."""
+    b = om.shape[0]
+    row_est = om.to(torch.float32).sum(dim=-1).cpu().numpy().astype(
+        np.float64)
+    if float(row_est.sum()) <= _WALK_CHUNK_BUDGET:
+        if int(om.sum()) <= 0:
+            return torch.zeros_like(w)
+        return _walk_contrib(g, om, w, generator, alpha, no_zero_hop)
+    out = torch.zeros_like(w)
+    margin = 1.01
+    lo = 0
+    while lo < b:
+        hi = lo + 1
+        acc = row_est[lo] * margin
+        while hi < b and acc + row_est[hi] * margin <= _WALK_CHUNK_BUDGET:
+            acc += row_est[hi] * margin
+            hi += 1
+        passes = max(1, int(math.ceil(
+            row_est[lo:hi].sum() * margin / _WALK_CHUNK_BUDGET)))
+        om_g = om[lo:hi]
+        for j in range(passes):
+            om_j = om_g // passes + (om_g % passes > j).to(om_g.dtype)
+            if int(om_j.sum()) > 0:
+                out[lo:hi] += _walk_contrib(g, om_j, w[lo:hi], generator,
+                                            alpha, no_zero_hop)
+        lo = hi
+    return out
+
+
+def _kth_over_support(p: torch.Tensor, k: int) -> torch.Tensor:
+    """Per row, the k-th largest value, or 0.0 when fewer than k values
+    are positive (the reference's null k-th reserve, Fora_Topk.java:
+    171-172; it also covers k > n, so an invalid k never stops the
+    annealing early)."""
+    kth = torch.topk(p, min(k, p.shape[-1]), dim=-1).values[..., -1]
+    support = (p > 0).sum(dim=-1)
+    return torch.where(support >= k, kth, torch.zeros_like(kth))
+
+
+def _whole_graph_walk_setup(r1: torch.Tensor, omega: float):
+    """``omega_i = ceil(r_i * omega)`` walks from each residual node, each
+    worth ``r_i / omega_i``: whole-graph's walks with ``r1 = (1-alpha) r``
+    (Fora_Whole_Graph.java:119-140), and a top-k round's with ``r1 = r``
+    and ``omega * rsum * (1-alpha)`` walks (Fora_Topk.java:148-168)."""
+    om = torch.where(r1 > 0, torch.ceil(r1 * float(np.float32(omega))),
+                     0.0).to(torch.int32)
+    w = torch.where(om > 0, r1 / om.clamp_min(1).to(torch.float32), 0.0)
+    return om, w
+
+
+class _ForaCostModel:
+    """The push / walk / propagation balance of both FORA algorithms.
+
+    Its constants come from :func:`_default_cost_constants` for the
+    graph's device; :meth:`calibrate` measures and installs them for this
+    graph (:mod:`~..utils.calibrate`)."""
 
     hub_split: HubSplit | None = None
-    #: device budget for the per-edge gather intermediate [m_pad, B]
+    #: the CPU's budget for the per-edge gather intermediate ``[m_pad, B]``
     spmv_intermediate_budget = 2 << 30
     #: the same budget for the hub-split tail
     hybrid_tail_budget = 6 << 30
+    #: set by ``PreprocessingMixin`` while a preprocessing sweep runs: the
+    #: completion choice then prices the transfer of each row's entries
+    _in_preprocessing = False
 
-    def __init__(self, dataset, alpha: float, k: int, *, seed: int = 0,
-                 push: str = "none", early_exit: bool = False):
-        super().__init__(dataset, alpha, seed=seed)
-        if push != "none":
-            raise NotImplementedError(
-                f"push={push!r} needs the walks and the FORA cost model, "
-                "which are not ported yet (ROADMAP.md, queue 1, item 11)"
-            )
-        n = dataset.graph.n
-        # Algo_Conf.set_conf_fora_topk (Algo_Conf.java:71-77)
-        self.k = int(k)
-        self.min_delta = 1.0 / n
-        self.delta0 = 1.0 / self.k
-        self.pfail = 1.0 / n / n / math.log(max(n / self.k, math.e))
-        self.push = push
-        #: stop as soon as every row's top-k id set is certified final
-        #: (ids as the full run's; values lower bounds)
-        self.early_exit = bool(early_exit)
-        #: sweeps the last annealed loop ran (summed over a cohort ladder's
-        #: stages)
-        self.last_iters: int | None = None
+    def _init_cost_constants(self) -> None:
+        (self.avg_rand_walk_time_ns, self.spmv_ns_per_edge,
+         self.spmv_batch_amortized, self.d2h_bytes_per_s) = \
+            _default_cost_constants(self.graph.device)
 
     def _num_chunks(self, batch: int) -> int:
         """Edge slices that keep the CPU's per-edge gather intermediate
@@ -303,6 +474,189 @@ class ForaTopk(PPRAlgorithm):
         product unless ``dtype=torch.bfloat16``)."""
         kwargs = {} if dtype is None else {"dtype": dtype}
         self.hub_split = build_hub_split(self.graph, num_hubs, **kwargs)
+
+    def calibrate(self, **kwargs):
+        """Measure the walk, sweep and transfer costs on this graph and
+        device and install them; returns the constants."""
+        from ..utils import calibrate as _cal
+
+        constants = _cal.measure(self.graph, alpha=self.alpha, **kwargs)
+        _cal.apply(self, constants)
+        return constants
+
+    def _spmv_completion_ns(self, rsum: float, target: float,
+                            batch: int) -> float:
+        """Estimated cost a query of completing residue ``rsum`` down to
+        ``target`` by propagation."""
+        iters = _completion_iters(rsum, target, self.alpha)
+        per_batch = iters * self.spmv_ns_per_edge * max(self.graph.m, 1)
+        return per_batch / max(batch, 1) if self.spmv_batch_amortized \
+            else per_batch
+
+    def _d2h_rate(self) -> float:
+        return float(self.d2h_bytes_per_s)
+
+    def _use_spmv(self, omega: float, rsum: float, target: float,
+                  batch: int = 1) -> bool:
+        """Complete by propagation (True) or by walks: ``completion`` when
+        it is not ``"auto"``, else the cheaper by the cost model."""
+        if self.completion != "auto":
+            return self.completion == "spmv"
+        walk_cost = self.avg_rand_walk_time_ns * omega * rsum
+        spmv_cost = self._spmv_completion_ns(rsum, target, batch)
+        if self._in_preprocessing:
+            # the all-pair sweep ships each row's positive entries to the
+            # host: propagation makes nearly every reachable entry positive
+            # (~n a row), while the walks' support is bounded by their count
+            per_entry_ns = 8 * 1e9 / self._d2h_rate()
+            spmv_cost += self.graph.n * per_entry_ns
+            walk_cost += min(float(self.graph.n), omega * rsum) * per_entry_ns
+        return spmv_cost < walk_cost
+
+
+class ForaWholeGraph(PreprocessingMixin, _ForaCostModel, PPRAlgorithm):
+    name = "FORA"
+    prep_dirname = "FORA_ppr_results"
+
+    def __init__(self, dataset, alpha: float, *, delta: float | None = None,
+                 pfail: float | None = None, seed: int = 0,
+                 max_push_rounds: int = 30, fresh_rounds: bool = False,
+                 completion: str = "auto"):
+        super().__init__(dataset, alpha, seed=seed)
+        n = dataset.graph.n
+        self.delta = delta if delta is not None else 1.0 / n
+        self.pfail = pfail if pfail is not None else 1.0 / n
+        self.max_push_rounds = max_push_rounds
+        #: residue completion: "walks" (the reference's estimator,
+        #: Fora_Whole_Graph.java:119-140), "spmv" (deterministic
+        #: propagation) or "auto" (the cost model)
+        self.completion = completion
+        self._init_cost_constants()
+        #: True pushes each round afresh from r = e_s, as the reference
+        #: (Fora_Whole_Graph.java:94-100); False continues from the last
+        #: round's state, which reaches an equivalent fixpoint (push is
+        #: confluent) with less work
+        self.fresh_rounds = fresh_rounds
+        #: push rounds of the last call, and their time a query (ns)
+        self.last_rounds: int | None = None
+        self.last_push_ns: float | None = None
+
+    def compute_whole_graph_batch(self, sources: np.ndarray, param
+                                  ) -> np.ndarray:
+        if len(sources) == 0:
+            return np.zeros((0, self.graph.n_pad), np.float32)
+        p = self.compute_whole_graph_device(sources, param)
+        return p.cpu().numpy()[: len(sources)]
+
+    def compute_whole_graph_device(self, sources: np.ndarray, param
+                                   ) -> torch.Tensor:
+        """Device reserve ``[B_pad, n_pad]``; rows past ``len(sources)``
+        are padding."""
+        eps = float(param)
+        g = self.graph
+        sources, _ = _pad_sources(sources)
+        m = max(g.m, 1)
+        ln_term = math.log(2.0 / self.pfail)
+        rmax = eps * math.sqrt(self.delta / 3.0 / m / ln_term) \
+            / (1.0 - self.alpha)
+        omega = (eps + 2.0) * ln_term / eps / eps / self.delta
+        sources_t = torch.as_tensor(sources, dtype=torch.int32,
+                                    device=g.device)
+        b = len(sources)
+
+        # --- adaptive push rounds (Fora_Whole_Graph.java:93-103) ---
+        p, r, src_onehot = forward_push_init(g, sources_t)
+        # one untimed push a (graph, B) and process: the first sparse push
+        # of a process builds the kernels with nvcc, and the first call at
+        # a new B grows the caching allocator; inside the timed rounds
+        # either would make push_ns huge and cut the rounds to one
+        warm_key = (g.n_pad, g.m_pad, g.has_dense, str(g.device), b,
+                    self.alpha)
+        if warm_key not in _WARMED_PUSH_SHAPES:
+            forward_push_sweeps(g, p, r, src_onehot, rmax, self.alpha)
+            synchronize(g.device)
+            _WARMED_PUSH_SHAPES.add(warm_key)
+        rsum_local = 1.0
+        push_ns = 0.0
+        rounds = 0
+        target = eps * self.delta
+        while (push_ns < min(
+                self.avg_rand_walk_time_ns * rsum_local * omega,
+                self._spmv_completion_ns(rsum_local, target, b))
+               and rounds < self.max_push_rounds):
+            t0 = time.perf_counter_ns()
+            if rounds and self.fresh_rounds:
+                p, r, src_onehot = forward_push_init(g, sources_t)
+            p, r, _ = forward_push_sweeps(g, p, r, src_onehot, rmax,
+                                          self.alpha)
+            synchronize(g.device)
+            push_ns += (time.perf_counter_ns() - t0) / b   # a query
+            rsum_local = float(r.sum(dim=-1).cpu().numpy().mean()) \
+                * (1.0 - self.alpha)
+            rmax /= 2.0
+            rounds += 1
+        self.last_rounds, self.last_push_ns = rounds, push_ns
+
+        # --- completion: eps*delta keeps each node's truncation error
+        # within FORA's eps*pi bound for every pi >= delta ---
+        rsum_now = float(r.sum(dim=-1).max())
+        if self._use_spmv(omega, rsum_now, target, b):
+            p, r, _ = residual_propagate(
+                g, p, r, src_onehot, target, self.alpha, hs=self.hub_split,
+                num_chunks=self._num_chunks(b))
+        else:
+            # the reference's estimator: residual-weighted no-zero-hop
+            # walks (Fora_Whole_Graph.java:119-140)
+            r1 = float(np.float32(1.0 - self.alpha)) * r
+            p = p + float(np.float32(self.alpha)) * r
+            om, w = _whole_graph_walk_setup(r1, omega)
+            p = p + _walk_contrib_chunked(g, om, w, self.generator,
+                                          self.alpha, True)
+        p, _ = apply_dangling_source_shortcircuit(
+            g, sources_t, p, torch.zeros_like(p), src_onehot)
+        return p
+
+
+class ForaTopk(_ForaCostModel, PPRAlgorithm):
+    name = "FORA-Topk"
+
+    def __init__(self, dataset, alpha: float, k: int, *, seed: int = 0,
+                 completion: str = "auto", push: str = "auto",
+                 early_exit: bool = False):
+        super().__init__(dataset, alpha, seed=seed)
+        if push not in ("auto", "reference", "none"):
+            raise ValueError(f"unknown push mode {push!r}")
+        n = dataset.graph.n
+        # Algo_Conf.set_conf_fora_topk (Algo_Conf.java:71-77)
+        self.k = int(k)
+        self.min_delta = 1.0 / n
+        self.delta0 = 1.0 / self.k
+        self.pfail = 1.0 / n / n / math.log(max(n / self.k, math.e))
+        #: residue completion of the push rounds: "walks", "spmv" or
+        #: "auto" (the cost model)
+        self.completion = completion
+        #: "reference": the push+completion rounds of Fora_Topk.java:
+        #: 123-179; "none": no pushes, the annealed propagation loop;
+        #: "auto": no pushes exactly when the cost model picks propagation
+        self.push = push
+        #: stop as soon as every row's top-k id set is certified final
+        #: (ids as the full run's; values lower bounds)
+        self.early_exit = bool(early_exit)
+        #: sweeps the last annealed loop ran (summed over a cohort ladder's
+        #: stages), or the rounds of the last push+completion run
+        self.last_iters: int | None = None
+        #: the walks each round of the last push+walks run launched
+        self.last_round_walks: list[int] = []
+        self._init_cost_constants()
+
+    def _skip_push(self, eps: float, batch: int) -> bool:
+        """Whether a query at ``eps'`` runs the annealed loop instead of
+        push rounds (``ppr_tpu/models/fora.py:997-1001``)."""
+        if self.push != "auto":
+            return self.push == "none"
+        omega0 = (eps + 2.0) * math.log(2.0 / self.pfail) / eps / eps \
+            / self.delta0
+        return self._use_spmv(omega0, 1.0, eps * self.delta0, batch)
 
     def compute_topk_batch(self, sources: np.ndarray, k: int, param
                            ) -> np.ndarray:
@@ -349,7 +703,10 @@ class ForaTopk(PPRAlgorithm):
         on from the same state at the pow2 width of their count. A row's
         trajectory is that of a run of the row alone. The stages share one
         budget of ``MAX_TOPK_SWEEPS``; once it is spent, every row left is
-        yielded as it stands, and a line on stderr says so."""
+        yielded as it stands, and a line on stderr says so.
+
+        When the push rounds run (:meth:`_skip_push` false), the batch is
+        one terminal cohort: walks carry no per-row state across widths."""
         k = int(k) if k and k > 0 else self.k
         g = self.graph
         sources = np.asarray(sources)
@@ -358,6 +715,11 @@ class ForaTopk(PPRAlgorithm):
             return
         eps = float(param) * 0.5      # eps' = eps/2 (Fora_Topk.java:110)
         kcap = min(int(kcap) if kcap else max(4 * k, k + 32), g.n_pad)
+        if not self._skip_push(eps, b):
+            vals, ids = self.compute_topk_ids_batch(sources, k, param,
+                                                    kcap=kcap)
+            yield np.arange(b), vals, ids
+            return
 
         budget = MAX_TOPK_SWEEPS      # one budget for all the stages
         iters_used = 0
@@ -428,18 +790,55 @@ class ForaTopk(PPRAlgorithm):
         dangling-source short-circuit."""
         eps = float(param) * 0.5      # eps' = eps/2 (Fora_Topk.java:110)
         g = self.graph
+        b = len(sources)
         sources_t = torch.as_tensor(np.asarray(sources), dtype=torch.int32,
                                     device=g.device)
         p, r, src_onehot = forward_push_init(g, sources_t)
         p = torch.zeros_like(p)
-        p, r, iters = annealed_topk_propagate(
-            g, p, r, src_onehot, eps, self.delta0, self.min_delta, k,
-            self.alpha, hs=self.hub_split,
-            num_chunks=self._num_chunks(len(sources)),
-            early_exit=self.early_exit,
-        )
-        self.last_iters = int(iters)
-        return p, sources_t, src_onehot
+        if self._skip_push(eps, b):
+            p, r, iters = annealed_topk_propagate(
+                g, p, r, src_onehot, eps, self.delta0, self.min_delta, k,
+                self.alpha, hs=self.hub_split,
+                num_chunks=self._num_chunks(b), early_exit=self.early_exit,
+            )
+            self.last_iters = int(iters)
+            return p, sources_t, src_onehot
+
+        # the rounds of Fora_Topk.java:123-179
+        m = max(g.m, 1)
+        ln_term = math.log(2.0 / self.pfail)
+        delta = self.delta0
+        self.last_round_walks = []
+        rounds = 0
+        while True:
+            rmax = eps * math.sqrt(delta / 3.0 / m / ln_term)
+            rmax *= math.sqrt(m * rmax) * 3.0   # Fora_Topk.java:133
+            omega = (eps + 2.0) * ln_term / eps / eps / delta
+            # the push goes on from the last round's state
+            p, r, _ = forward_push_sweeps(g, p, r, src_onehot, rmax,
+                                          self.alpha)
+            rsum_rw = float(r.sum(dim=-1).cpu().numpy().mean()) \
+                * (1.0 - self.alpha)
+            target = eps * delta
+            # a round's completion is not folded back into (p, r)
+            # (Fora_Topk.java:142-168)
+            if self._use_spmv(omega, rsum_rw, target, b):
+                result, _, _ = residual_propagate(
+                    g, p, r, src_onehot, target, self.alpha,
+                    hs=self.hub_split, num_chunks=self._num_chunks(b))
+            else:
+                om, w = _whole_graph_walk_setup(r, omega * rsum_rw)
+                self.last_round_walks.append(int(om.sum()))
+                result = p + _walk_contrib_chunked(g, om, w, self.generator,
+                                                   self.alpha, False)
+            rounds += 1
+            # Fora_Topk.java:173-178: k-th reserve >= (1+eps')*delta
+            kth = _kth_over_support(result, k).cpu().numpy()
+            if np.all(kth >= (1.0 + eps) * delta) or delta <= self.min_delta:
+                break
+            delta = max(self.min_delta, delta / 4.0)
+        self.last_iters = rounds
+        return result, sources_t, src_onehot
 
     def compute_whole_graph_batch(self, sources, param):  # top-k only algo
         return self.compute_topk_batch(sources, self.k, param)

@@ -3,17 +3,20 @@
     svc = PPRService.from_dataset(load_default(), alpha=0.15, hub_split=64)
     hits = svc.top_k([3, 14, 50], k=10)      # per source: [TopKHit, ...]
 
-Top-k queries run the FORA top-k serving path (annealed deterministic
-propagation, device-side selection). ``hub_split=H`` turns on the dense-hub
-hybrid push with a bf16 hub product unless ``hub_dtype`` says otherwise.
-``early_exit=True`` stops the annealed loop once every row's top-k set is
-certified final; ``cohort=True`` adds :meth:`PPRService.top_k_stream`,
-which hands back rows as they retire; ``precomputed=(threshold, k)``
-answers every query from a BASE all-pair store made earlier.
+Top-k queries run FORA top-k with device-side selection: the annealed
+propagation loop, or push+walk rounds where FORA's cost model prices walks
+lower; :meth:`PPRService.whole_graph` runs FORA whole-graph.
+``hub_split=H`` builds the dense-hub hybrid push once, with a bf16 hub
+product unless ``hub_dtype`` says otherwise, and both algorithms use it;
+``calibrate=True`` measures the cost constants on the graph once and gives
+them to both. ``early_exit=True`` stops the annealed loop once every row's
+top-k set is certified final; ``cohort=True`` adds
+:meth:`PPRService.top_k_stream`, which hands back rows as they retire;
+``precomputed=(threshold, k)`` answers every query from a BASE all-pair
+store made earlier.
 
 Not ported yet, and raising ``NotImplementedError``: ``mesh`` (ROADMAP.md,
-queue 1, item 18), ``calibrate`` and :meth:`PPRService.whole_graph`
-outside ``precomputed`` (both FORA's cost model and whole-graph, item 11).
+queue 1, item 18).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from .graph.io import Dataset
 from .models import AlgoConf, AlgoType
 from .ops.hub_split import build_hub_split
 from .ops.topk import topk_ids_with_ties
+from .utils import calibrate as calibrate_mod
 
 
 @dataclasses.dataclass
@@ -87,11 +91,6 @@ class PPRService:
                 "mesh: the sharded engines are not ported yet (ROADMAP.md, "
                 "queue 1, item 18)"
             )
-        if calibrate:
-            raise NotImplementedError(
-                "calibrate: FORA's cost model is not ported yet (ROADMAP.md, "
-                "queue 1, item 11)"
-            )
         self._topk_algo = conf.new_algo_obj(algorithm, dataset, k)
         if early_exit:
             if not hasattr(self._topk_algo, "early_exit"):
@@ -105,12 +104,26 @@ class PPRService:
                 f"cohort streaming is only supported by the single-device "
                 f"FORA top-k serving engine, not {algorithm}"
             )
-        self._wg_algo = None
-        if hub_split and hasattr(self._topk_algo, "enable_hub_split"):
-            self._topk_algo.hub_split = build_hub_split(
+        self._wg_algo = conf.new_algo_obj(
+            AlgoType.FORA_WHOLE_GRAPH
+            if algorithm == AlgoType.FORA_TOPK else algorithm,
+            dataset, k,
+        )
+        algos = [a for a in (self._topk_algo, self._wg_algo)
+                 if hasattr(a, "enable_hub_split")]
+        if hub_split and algos:
+            # built once and shared: the hub matrix can be gigabytes
+            hs = build_hub_split(
                 dataset.graph, hub_split,
                 dtype=hub_dtype if hub_dtype is not None else torch.bfloat16,
             )
+            for algo in algos:
+                algo.hub_split = hs
+        if calibrate and algos:
+            # one measurement (same device and graph) for both
+            constants = algos[0].calibrate()
+            for algo in algos[1:]:
+                calibrate_mod.apply(algo, constants)
 
     @classmethod
     def from_dataset(cls, dataset: Dataset, **kwargs) -> "PPRService":
@@ -196,14 +209,7 @@ class PPRService:
                                            eps_v))
 
     def whole_graph(self, sources, eps: float | None = None) -> np.ndarray:
-        """Dense PPR rows ``[B, n]`` (padding trimmed); only from a
-        precomputed store so far."""
-        if self._wg_algo is None:
-            raise NotImplementedError(
-                "whole_graph runs FORA whole-graph, which is not ported yet "
-                "(ROADMAP.md, queue 1, item 11); a precomputed BASE store "
-                "answers it"
-            )
+        """Dense PPR rows ``[B, n]`` (padding trimmed)."""
         sources = np.asarray(sources)
         scores = self._wg_algo.compute_whole_graph_batch(
             sources, eps or self.eps

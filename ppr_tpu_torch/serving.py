@@ -738,8 +738,8 @@ def main(argv=None) -> int:
                          "resolves when ITS row retires instead of when "
                          "the slowest row in the dispatch finishes")
     ap.add_argument("--calibrate", action="store_true",
-                    help="measure backend cost constants at startup (not "
-                         "ported: raises)")
+                    help="measure FORA's cost constants on the graph at "
+                         "startup")
     ap.add_argument("--max-delay-ms", type=float, default=0.0)
     ap.add_argument("--slo-ms", type=float, default=None,
                     help="target worst-case request latency; replaces the "
@@ -769,11 +769,6 @@ def main(argv=None) -> int:
             "--mesh: the sharded engines are not ported yet (ROADMAP.md, "
             "queue 1, item 18)"
         )
-    if args.calibrate:
-        raise NotImplementedError(
-            "--calibrate: FORA's cost model is not ported yet (ROADMAP.md, "
-            "queue 1, item 11)"
-        )
     precomputed = None
     if args.precomputed:
         parts = args.precomputed.split(",")
@@ -782,6 +777,7 @@ def main(argv=None) -> int:
     ds = load_dataset(args.db, device=args.device)
     svc = PPRService.from_dataset(ds, alpha=args.alpha, eps=args.eps,
                                   k=args.k, hub_split=args.hub_split,
+                                  calibrate=args.calibrate,
                                   precomputed=precomputed,
                                   early_exit=args.early_exit,
                                   cohort=args.cohort,

@@ -58,7 +58,8 @@ def sources_of(ds, b, seed=5):
 def engines(jds, tds, k, early_exit, hubs):
     jalgo = jfora.ForaTopk(jds, ALPHA, k, seed=7, push="none",
                            early_exit=early_exit)
-    talgo = tfora.ForaTopk(tds, ALPHA, k, seed=7, early_exit=early_exit)
+    talgo = tfora.ForaTopk(tds, ALPHA, k, seed=7, push="none",
+                           early_exit=early_exit)
     if hubs:
         jalgo.enable_hub_split(hubs, dtype=jnp.bfloat16)
         talgo.enable_hub_split(hubs, dtype=torch.bfloat16)
@@ -145,7 +146,7 @@ def test_cohort_disjoint_cover_and_cotenant_independence(datasets,
     batch width."""
     _, tds = datasets["pl2048"]
     sources = sources_of(tds, 24)
-    algo = tfora.ForaTopk(tds, ALPHA, 3)
+    algo = tfora.ForaTopk(tds, ALPHA, 3, push="none")
     stages, cohorts, rows = run_cohorts(tfora, monkeypatch, algo, sources, 3,
                                         0.1)
     assert len(cohorts) > 1
@@ -222,8 +223,8 @@ def test_early_exit_keeps_the_plain_id_sets(datasets):
     """The certificate only stops a loop whose top-k sets are final."""
     _, tds = datasets["pl2048"]
     sources = sources_of(tds, 24)
-    plain = tfora.ForaTopk(tds, ALPHA, 1)
-    fast = tfora.ForaTopk(tds, ALPHA, 1, early_exit=True)
+    plain = tfora.ForaTopk(tds, ALPHA, 1, push="none")
+    fast = tfora.ForaTopk(tds, ALPHA, 1, push="none", early_exit=True)
     pv, pi = plain.compute_topk_ids_batch(sources, 1, 0.5)
     fv, fi = fast.compute_topk_ids_batch(sources, 1, 0.5)
     assert fast.last_iters < plain.last_iters

@@ -1,7 +1,8 @@
 """The port's FORA top-k serving path against the JAX package's.
 
-The JAX engine is pinned to ``push="none"``: on the CPU its cost constants
-(``ppr_tpu/models/fora.py:61-73``) could choose walks under "auto". The
+Both engines are pinned to ``push="none"``: on the CPU their cost
+constants (``ppr_tpu/models/fora.py:61-73``) could choose walks under
+"auto", whose draws differ between the packages. The
 annealed loop must stop on the same sweep; reserves agree within float
 reassociation (atol 1e-6), and the tie-expanded top-k id sets are equal
 (``torch.topk`` and ``lax.top_k`` order ties differently)."""
@@ -80,7 +81,7 @@ def test_topk_ids_match_jax(datasets, kind, hubs, b):
     jds, tds = datasets[kind]
     sources = batch(jds.graph, b)
     jalgo = jfora.ForaTopk(jds, ALPHA, K, seed=7, push="none")
-    talgo = tfora.ForaTopk(tds, ALPHA, K, seed=7)
+    talgo = tfora.ForaTopk(tds, ALPHA, K, seed=7, push="none")
     if hubs:
         jalgo.enable_hub_split(hubs, dtype=jnp.float32)
         talgo.enable_hub_split(hubs, dtype=torch.float32)
@@ -102,7 +103,8 @@ def test_topk_batch_dense_matches_jax(datasets):
     sources = batch(jds.graph, 5)
     ref = jfora.ForaTopk(jds, ALPHA, K, push="none").compute_topk_batch(
         sources, K, EPS)
-    out = tfora.ForaTopk(tds, ALPHA, K).compute_topk_batch(sources, K, EPS)
+    out = tfora.ForaTopk(tds, ALPHA, K, push="none").compute_topk_batch(
+        sources, K, EPS)
     assert out.shape == (5, jds.graph.n_pad)
     np.testing.assert_allclose(out, ref, atol=1e-6)
 
@@ -119,7 +121,7 @@ def test_pad_sources():
 def test_num_chunks_matches_jax(datasets):
     jds, tds = datasets["sparse"]
     jalgo = jfora.ForaTopk(jds, ALPHA, K, push="none")
-    talgo = tfora.ForaTopk(tds, ALPHA, K)
+    talgo = tfora.ForaTopk(tds, ALPHA, K, push="none")
     for budget in (1 << 14, 1 << 20, 2 << 30):
         jalgo.spmv_intermediate_budget = talgo.spmv_intermediate_budget = \
             budget
@@ -127,7 +129,13 @@ def test_num_chunks_matches_jax(datasets):
 
 
 def test_unported_push_modes_raise(datasets):
-    _, tds = datasets["dense"]
-    for push in ("auto", "reference"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfora.ForaTopk(tds, ALPHA, K, push=push)
+    """The push modes that raised until the push+walk rounds were ported
+    are taken, "auto" is the default as in the JAX package, and an unknown
+    mode raises."""
+    jds, tds = datasets["dense"]
+    assert tfora.ForaTopk(tds, ALPHA, K).push == \
+        jfora.ForaTopk(jds, ALPHA, K).push == "auto"
+    for push in ("auto", "reference", "none"):
+        assert tfora.ForaTopk(tds, ALPHA, K, push=push).push == push
+    with pytest.raises(ValueError, match="push mode"):
+        tfora.ForaTopk(tds, ALPHA, K, push="fast")

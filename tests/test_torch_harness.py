@@ -8,8 +8,9 @@ NDCG within 1e-9, since the same top-k sets give the same sums;
 preprocessing bytes within 1%, since the npz shards are compressed and the
 values differ in their last bits. Time fields are dropped.
 
-The JAX engine's FORA top-k is pinned to ``push="none"``, the port's only
-mode (tests/test_torch_fora.py says why)."""
+Where FORA top-k rows are compared, both engines are pinned to
+``push="none"``: under "auto" the cost model may pick the push+walk rounds,
+whose draws differ between the packages."""
 
 import dataclasses
 import os
@@ -29,7 +30,8 @@ from ppr_tpu_torch import harness as th
 from ppr_tpu_torch.graph import io as tio
 from ppr_tpu_torch.graph.csr import graph_from_numpy
 from ppr_tpu_torch.graph.io import Dataset
-from ppr_tpu_torch.models.config import AlgoType
+from ppr_tpu_torch.models import fora as tfora
+from ppr_tpu_torch.models.config import AlgoConf, AlgoType
 from ppr_tpu_torch.utils.timer import PhaseTimer
 
 Q, K = 8, 5
@@ -56,11 +58,12 @@ def tiny_spec(algo_type, params=(5, 40)):
             for test in ("whole_graph", "topk", "prep")}
 
 
-def pin_jax_fora(monkeypatch):
-    monkeypatch.setattr(
-        JaxAlgoConf, "set_conf_fora_topk",
-        lambda self, dataset, k: jfora.ForaTopk(
-            dataset, self.alpha, k=k, seed=self.seed, push="none"))
+def pin_fora(monkeypatch):
+    for conf, mod in ((JaxAlgoConf, jfora), (AlgoConf, tfora)):
+        monkeypatch.setattr(
+            conf, "set_conf_fora_topk",
+            lambda self, dataset, k, mod=mod: mod.ForaTopk(
+                dataset, self.alpha, k=k, seed=self.seed, push="none"))
 
 
 # per (test, BASE section?): the kind of each field of a row, as
@@ -169,7 +172,7 @@ def test_query_nodes_match_jax(datasets, kind):
 @pytest.mark.parametrize("kind", ["dense", "sparse"])
 def test_fora_topk_row_matches_jax(datasets, tmp_path, monkeypatch, kind):
     jds, tds = datasets[kind]
-    pin_jax_fora(monkeypatch)
+    pin_fora(monkeypatch)
     res = []
     for mod, ds, sub in ((jh, jds, "jax"), (th, tds, "port")):
         h = mod.PerfHarness(ds, seed=1, out_dir=str(tmp_path / sub),
@@ -254,23 +257,36 @@ def test_batch_test_skips_undefined_prep(small, tmp_path, monkeypatch):
     ((1,), None, "1.1 FORA_WHOLE_GRAPH"),
     ((3,), {"MC", "NEO4J_METHOD"}, "3.4 MC"),
 ])
-def test_unported_algorithm_raises_at_its_section(small, tmp_path, tests,
-                                                  algos, section):
+def test_unported_algorithm_raises_at_its_section(small, tmp_path,
+                                                  monkeypatch, tests, algos,
+                                                  section):
+    """Monte-Carlo and FORA whole-graph, which raised at their section
+    until they were ported, now write their rows there (each array cut to
+    its cheapest param)."""
     ds, h = small
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        h.algo_perf_batch_test(query_num=2, k=5, sweep="got", tests=tests,
-                               algos=algos)
-    assert report(tmp_path, ds).rstrip().endswith(section)
+    monkeypatch.setitem(th.SWEEPS, "got", {
+        test: {a: params[:1] for a, params in arrays.items()}
+        for test, arrays in th.SWEEPS["got"].items()})
+    h.algo_perf_batch_test(query_num=2, k=5, sweep="got", tests=tests,
+                           algos=algos)
+    fields = report(tmp_path, ds).split(section + "\n")[1] \
+        .splitlines()[0].split(",")
+    spec = {1: "whole_graph", 2: "topk", 3: "prep"}[tests[0]]
+    param = th.SWEEPS["got"][spec][AlgoType(section.split()[1])][0]
+    assert float(fields[0]) == param
+    assert all(np.isfinite(float(x)) for x in fields)
 
 
 def test_harness_unported_options_raise(datasets):
     _, tds = datasets["dense"]
     with pytest.raises(NotImplementedError, match="item 18"):
         th.PerfHarness(tds, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        th.PerfHarness(tds, fora_completion="walks")
-    for mode in ("auto", "spmv"):
-        th.PerfHarness(tds, fora_completion=mode)
+    # the walk completion is ported: every mode is taken, as in JAX
+    for mode in ("auto", "spmv", "walks"):
+        assert th.PerfHarness(tds, fora_completion=mode).fora_completion \
+            == mode
+    with pytest.raises(ValueError, match="unknown FORA completion"):
+        th.PerfHarness(tds, fora_completion="exact")
 
 
 def test_parser_defaults_match_jax():
@@ -372,9 +388,10 @@ def test_cli_unported_flags_raise(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="item 18"):
         tcli.main(["--db", "synth:107x3@7", "--mesh", "1x1",
                    "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tcli.main(["--db", "synth:107x3@7", "--fora-completion", "walks",
-                   "--device", "cpu"])
+    # --fora-completion walks is ported (tests/test_torch_fora_walks.py
+    # runs it); the flag parses as in the JAX CLI
+    assert tcli.build_parser().parse_args(
+        ["--fora-completion", "walks"]).fora_completion == "walks"
     with pytest.raises(SystemExit, match="dataset not found"):
         tcli.main(["--db", str(tmp_path / "nothing"), "--device", "cpu"])
     if not os.path.isdir(tio.REFERENCE_GOT_DIR):   # the CSVs are not committed
@@ -405,7 +422,7 @@ def test_cli_device_cpu_rows_match_jax_cli(tmp_path, monkeypatch, algos,
                                            tests):
     """``--device cpu`` on a process without a card writes the JAX CLI's
     rows for the same command (the rows the port wrote before the flag)."""
-    pin_jax_fora(monkeypatch)
+    pin_fora(monkeypatch)
     argv = ["--db", "synth:107x3@7", "--sweep", "got", "--query", "4",
             "--k", "5", "--tests", tests, "--algos", algos]
     for pkg, main, extra in (("jax", jcli.main, []),

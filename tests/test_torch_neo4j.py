@@ -149,6 +149,12 @@ def test_new_algo_obj(datasets):
                          (AlgoType.BASE_WHOLE_GRAPH, "BaseAllPair")):
         other = conf.new_algo_obj(ported, tds)
         assert type(other).__name__ == name and other.alpha == ALPHA
-    for unported in (AlgoType.MC, AlgoType.FORA_WHOLE_GRAPH):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            conf.new_algo_obj(unported, tds)
+    # Monte-Carlo and FORA whole-graph, which raised until they were
+    # ported: every AlgoType builds
+    for ported, name in ((AlgoType.MC, "MonteCarlo"),
+                         (AlgoType.FORA_WHOLE_GRAPH, "ForaWholeGraph")):
+        other = conf.new_algo_obj(ported, tds)
+        assert type(other).__name__ == name and other.alpha == ALPHA
+        assert other.delta == other.pfail == 1.0 / tds.n
+    assert {type(conf.new_algo_obj(a, tds, 5)).__name__
+            for a in AlgoType} >= {"ForaTopk", "PowerMethod"}

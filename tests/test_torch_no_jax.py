@@ -24,6 +24,7 @@ MODULES = [
     "ppr_tpu_torch.ops.probe",
     "ppr_tpu_torch.ops.compact",
     "ppr_tpu_torch.ops.row_gather",
+    "ppr_tpu_torch.ops.walk",
     "ppr_tpu_torch.models.base",
     "ppr_tpu_torch.models.power_method",
     "ppr_tpu_torch.models.fora",
@@ -31,6 +32,7 @@ MODULES = [
     "ppr_tpu_torch.models.forward_push",
     "ppr_tpu_torch.models.backward_search",
     "ppr_tpu_torch.models.base_allpair",
+    "ppr_tpu_torch.models.monte_carlo",
     "ppr_tpu_torch.models.config",
     "ppr_tpu_torch.utils.metrics",
     "ppr_tpu_torch.utils.store",
@@ -38,6 +40,7 @@ MODULES = [
     "ppr_tpu_torch.utils.timer",
     "ppr_tpu_torch.utils.cuda_timing",
     "ppr_tpu_torch.utils.cpu_fora",
+    "ppr_tpu_torch.utils.calibrate",
     "ppr_tpu_torch.service",
     "ppr_tpu_torch.serving",
     "ppr_tpu_torch.harness",

@@ -83,7 +83,10 @@ def test_power_method_class_on_cpu(graphs, monkeypatch):
 
 
 def test_unported_algorithms_raise(graphs):
+    """Monte-Carlo, which raised here until it was ported, is built with
+    the reference's delta = pfail = 1/n (Algo_Conf.java:29-34)."""
     _, tg = graphs["dense"]
     ds = Dataset(graph=tg, names=[str(i) for i in range(tg.n)], name="got")
-    with pytest.raises(NotImplementedError, match="MC"):
-        AlgoConf(ALPHA).new_algo_obj(AlgoType.MC, ds)
+    mc = AlgoConf(ALPHA, seed=4).new_algo_obj(AlgoType.MC, ds)
+    assert type(mc).__name__ == "MonteCarlo" and mc.alpha == ALPHA
+    assert mc.delta == mc.pfail == 1.0 / tg.n

@@ -1,5 +1,6 @@
-"""``PPRService`` of the port against the JAX package's (its top-k engine
-pinned to ``push="none"``): ``top_k`` with the same node ids and scores
+"""``PPRService`` of the port against the JAX package's (both top-k
+engines pinned to ``push="none"``, where the draws of the push+walk rounds
+would differ): ``top_k`` with the same node ids and scores
 within 1e-6 (1e-5 where the bf16 hub product adds in another order), the
 ``early_exit``, ``cohort`` (``top_k_stream``) and ``precomputed`` options,
 and the same validation errors."""
@@ -72,6 +73,7 @@ def test_top_k_matches_jax(datasets, kind, hubs, dtype, atol):
     jsvc._topk_algo.push = "none"
     tsvc = PPRService.from_dataset(tds, alpha=0.15, eps=0.5, k=10, seed=7,
                                    **tkw)
+    tsvc._topk_algo.push = "none"
     assert_same_hits(jsvc.top_k(SOURCES, k=10), tsvc.top_k(SOURCES, k=10),
                      tds.names, atol)
 
@@ -95,23 +97,55 @@ def test_dense_fallback_on_tie_overflow(datasets):
     dict(mesh=object()), dict(calibrate=True),
 ])
 def test_unported_options_raise(datasets, option):
+    """A mesh still raises; ``calibrate``, which raised until FORA's cost
+    model was ported, measures the constants and gives both algorithms
+    the same ones."""
     _, tds = datasets["got"]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PPRService(tds, **option)
+    if "mesh" in option:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            PPRService(tds, **option)
+        return
+    svc = PPRService(tds, **option)
+    consts = [(a.avg_rand_walk_time_ns, a.spmv_ns_per_edge,
+               a.spmv_batch_amortized, a.d2h_bytes_per_s)
+              for a in (svc._topk_algo, svc._wg_algo)]
+    assert consts[0] == consts[1]
+    assert consts[0][2] is True and all(c > 0 for c in consts[0][:2])
+    assert consts[0] != (400.0, 4.0, False, 4e9)   # measured, not defaults
 
 
 def test_unported_options_name_their_item(datasets):
     _, tds = datasets["small"]
     with pytest.raises(NotImplementedError, match="item 18"):
         PPRService(tds, mesh=object(), mesh_engine="node")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PPRService(tds, calibrate=True)
+    # calibrate (item 11) is ported: the service answers with either
+    # constants
+    assert PPRService(tds, calibrate=True, k=3).top_k([1, 2])
 
 
 def test_whole_graph_not_ported(datasets):
-    _, tds = datasets["got"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PPRService(tds).whole_graph([1])
+    """``whole_graph`` runs FORA whole-graph (it raised until item 11 was
+    ported): the JAX service's rows within its accuracy on this graph,
+    both packages' completion pinned to propagation."""
+    jds, tds = datasets["got"]
+    jsvc, tsvc = JaxService(jds), PPRService(tds)
+    for svc in (jsvc, tsvc):
+        svc._wg_algo.completion = "spmv"
+    assert type(tsvc._wg_algo).__name__ == "ForaWholeGraph"
+    got = tsvc.whole_graph([1, 5, 50])
+    want = np.asarray(jsvc.whole_graph([1, 5, 50]))
+    assert got.shape == (3, tds.n)
+    # the residue left is at most eps * delta
+    np.testing.assert_allclose(got.sum(axis=1), 1.0, atol=0.5 / tds.n)
+    # the push rounds follow the wall clock in both packages, so the rows
+    # agree to FORA's bound, eps * delta a node, not to the bit
+    assert np.abs(got - want).max() <= 0.5 / tds.n
+
+
+def test_hub_split_is_shared_by_both_algorithms(datasets):
+    _, tds = datasets["synth"]
+    svc = PPRService(tds, hub_split=64)
+    assert svc._topk_algo.hub_split is svc._wg_algo.hub_split is not None
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -161,6 +195,7 @@ def test_early_exit_service_matches_jax(datasets, kind, hubs):
     jsvc = JaxService(jds, k=3, seed=7, early_exit=True, **jkw)
     jsvc._topk_algo.push = "none"
     tsvc = PPRService(tds, k=3, seed=7, early_exit=True, **tkw)
+    tsvc._topk_algo.push = "none"
     assert tsvc._topk_algo.early_exit
     sources = np.random.default_rng(4).integers(0, tds.n, 24)
     assert_same_hits(jsvc.top_k(sources), tsvc.top_k(sources), tds.names,
@@ -188,6 +223,7 @@ def test_top_k_stream_matches_jax(datasets, early_exit):
     jsvc = JaxService(jds, k=3, eps=0.1, cohort=True, early_exit=early_exit)
     jsvc._topk_algo.push = "none"
     tsvc = PPRService(tds, k=3, eps=0.1, cohort=True, early_exit=early_exit)
+    tsvc._topk_algo.push = "none"
     sources = np.random.default_rng(5).integers(0, tds.n, 24)
     jrows, jcohorts = stream(jsvc, sources)
     trows, tcohorts = stream(tsvc, sources)
