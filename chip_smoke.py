@@ -106,13 +106,35 @@ script exits non-zero:
    top-k, Tests 1-3, and on the ca-GrQc stand-in, FORA whole-graph and
    top-k, Tests 1-2, under ``auto`` and ``walks``): each row held to the
    JAX package's CPU row of the same command and seed (``WALK_JAX_ROWS``;
-   max-err <= 1.5 x JAX's + 1e-4, precision >= JAX's - 0.05).
+   max-err <= 1.5 x JAX's + 1e-4, precision >= JAX's - 0.05);
+12. weighted graphs and the Neo4j store: ``[weighted]`` (the weighted
+   bench graph, ``synthetic_weighted(65536, 16, seed=42)``, which
+   builder made it, and the native builder against the numpy paths on the
+   host: CSR, parse and alias tables, the same arrays, each one's
+   seconds), ``[weighted:k3]`` (K3's coefficient mode against its
+   plain version bit for bit at that graph's whole push, B 2048, beside
+   the same edges in the unweighted mode, and at the weighted ca-GrQc
+   stand-in's shapes, with ``embedding_bag(per_sample_weights=)``),
+   ``[weighted:oracle]`` (K1 on ``synthetic_weighted(1000, 16, seed=11)``
+   within 2e-5 of the sparse weighted path), ``[weighted:fora]`` (FORA
+   top-k at B 2048 with no hub split, precision@10 >= 0.99 against the
+   weighted oracle, the power method in float64 by torch's sparse
+   product, which does not run K3, and FORA whole-graph at B 64, mean max-err < 0.03),
+   ``[weighted:profile]``, ``[weighted:walks]`` (the alias-step walks on
+   2^22 walkers, mass 1 within 1e-6; Monte-Carlo on 4 sources, mean
+   max-err < 0.05), ``[protocol:weighted]`` (the harness on the weighted
+   ca-GrQc stand-in read by ``load_edge_list(weighted=True)``, each row
+   held to ``WEIGHTED_JAX_ROWS``) and ``[neostore]`` (the CLI on a Neo4j
+   store written by ``tests/test_torch_neostore.py``'s writer: Test 1
+   rows equal to ``--db synth:107x3@7``'s; ``--rel NOPE`` raises).
 
 Launch counts are reset before the serving path (7) and read after it,
-and again before and after the serving layer (9), the protocol path (10)
-and the walk path (11); a reset also forgets the probe, so each path runs
-K0 once before its first hand kernel. The last three lines are the
-kernels' JSON record (``launches`` summed over the four paths;
+and again before and after the serving layer (9), the protocol path (10),
+the walk path (11), the weighted path and the store path (12); a reset
+also forgets the probe, so each path runs K0 once before its first hand
+kernel. The weighted path must launch K3 only in its coefficient mode,
+and never its plain version. The last three lines are the
+kernels' JSON record (``launches`` summed over the six paths;
 ``row_gather`` is a
 microbenchmark, as P1-P4 were on the TPU, so no path launches it; ``ms``,
 ``plain_ms``, ``library_ms``, ``bound_ms`` and ``bound_by`` at one shape
@@ -376,6 +398,66 @@ WALK_JAX_ROWS = {
     },
 }
 
+#: the weighted protocol's graph: synthetic_weighted(5120, 3, seed=103),
+#: the ca-GrQc stand-in with log-normal weights
+WEIGHTED_GRQC = (5120, 3, 103)
+
+# The JAX package's rows for the weighted protocol on the CPU: the file
+# write_weighted_edges writes, loaded by ppr_tpu.graph.io.load_edge_list(
+# path, weighted=True) and run through ppr_tpu.harness.PerfHarness(ds,
+# seed=0).algo_perf_batch_test(50, 10, sweep="grqc", tests=(1, 2),
+# algos={"FWDPUSH", "NEO4J_METHOD", "FORA_TOPK"}) (the JAX CLI has no
+# --weighted flag); from the repository root, about 30 s:
+#   JAX_PLATFORMS=cpu python -c 'import jax; jax.config.update(
+#   "jax_platforms", "cpu"); import os, tempfile; from chip_smoke import *;
+#   from ppr_tpu.graph.io import load_edge_list; from ppr_tpu.harness
+#   import PerfHarness; d = tempfile.mkdtemp(); p = os.path.join(d,
+#   "wgrqc.txt"); write_weighted_edges(p); PerfHarness(load_edge_list(p,
+#   weighted=True), seed=0, out_dir=d).algo_perf_batch_test(50, 10,
+#   sweep="grqc", tests=(1, 2), algos={"FWDPUSH", "NEO4J_METHOD",
+#   "FORA_TOPK"}); print(protocol_rows(os.path.join(d,
+#   "wgrqc_AlgoPerfResults.txt")))'
+# max-err for Test 1, precision for Test 2, by sweep value. Forward Push
+# and the Neo4j method are held to [protocol:grqc]'s bars (check_protocol_
+# rows), FORA top-k to [protocol:walks]'s (check_walk_rows): its cost
+# model may take walks, whose draws differ between the packages.
+WEIGHTED_JAX_ROWS = {
+    (1, "FWDPUSH"): {
+        "0.0001": 0.0032060828804969786, "1e-05": 0.0006496196985244751,
+        "1e-06": 8.350193500518799e-05, "1e-07": 1.1266767978668213e-05,
+        "1e-08": 1.1584162712097167e-06},
+    (2, "FWDPUSH"): {
+        "0.0001": 0.996, "1e-06": 1.0, "5e-08": 1.0, "7e-09": 1.0,
+        "7e-10": 1.0},
+    (1, "NEO4J_METHOD"): {
+        "5": 0.06238948196172714, "40": 1.7132461071014404e-05,
+        "100": 5.6549906730651854e-08, "200": 5.5618584156036376e-08,
+        "300": 7.160007953643798e-08},
+    (2, "NEO4J_METHOD"): {
+        "5": 0.954, "40": 1.0, "300": 1.0, "500": 1.0, "1000": 1.0},
+    (2, "FORA_TOPK"): {
+        "10.0": 0.99, "0.5": 1.0, "0.1": 1.0, "0.01": 1.0, "0.001": 1.0},
+}
+
+
+def write_weighted_edges(path: str) -> None:
+    """Write the weighted protocol's graph as ``src dst w`` lines: each
+    edge of ``synthetic_weighted(*WEIGHTED_GRQC)`` in source-sorted order,
+    weighed by its coefficient (the weights normalised per source, which
+    give the same coefficients), printed so that it reads back exactly."""
+    from ppr_tpu_torch.graph.io import synthetic_weighted
+
+    n, deg, seed = WEIGHTED_GRQC
+    g = synthetic_weighted(n, deg, seed=seed, dense_threshold=0,
+                           device="cpu").graph
+    src = g.edge_src[: g.m].tolist()
+    dst = g.edge_dst[: g.m].tolist()
+    coef = g.edge_coef[: g.m].double().tolist()
+    with open(path, "w") as f:
+        f.write("# synthetic_weighted(5120, 3, seed=103): src dst w\n")
+        f.writelines(f"{s} {d} {w!r}\n" for s, d, w in zip(src, dst, coef))
+
+
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(msg)
@@ -387,23 +469,27 @@ def split_times(fn, launches: int, calls: int, before=None) -> dict:
             "device_ms": graph_ms(fn, launches, before)}
 
 
-def k3_library(table, src, ptr):
+def k3_library(table, src, ptr, coef=None):
     """The one PyTorch call that computes K3's function, for ``library_ms``:
     ``embedding_bag`` in ``sum`` mode with ``ptr`` as its offsets (the last
-    one included). It wants indices of the offsets' type, so they are cast
-    here, once, outside every timer. The port never calls it."""
+    one included), and ``coef`` as its ``per_sample_weights`` in the
+    coefficient mode. It wants indices of the offsets' type, so they are
+    cast here, once, outside every timer. The port never calls it."""
     import torch.nn.functional as F
 
-    index = src[: int(ptr[-1])].long()
+    edges = int(ptr[-1])
+    index = src[:edges].long()
+    weights = None if coef is None else coef[:edges]
 
     def library():
         return F.embedding_bag(index, table, ptr, mode="sum",
+                               per_sample_weights=weights,
                                include_last_offset=True)
     return library
 
 
 def library_times(label, library, want, ms, split, launches, calls,
-                  before=None) -> dict:
+                  before=None, tag="k3") -> dict:
     """Time K3's library call as the kernel was timed, hold its result
     against the plain version's (``want``), and say, like with like,
     whether the kernel (``ms``, ``split``) is as fast."""
@@ -421,7 +507,7 @@ def library_times(label, library, want, ms, split, launches, calls,
            "library_host_us": lib["host_us"],
            "library_device_ms": lib["device_ms"],
            "library_equal": equal}
-    print(f"[k3] {label}: library call embedding_bag(mode='sum') "
+    print(f"[{tag}] {label}: library call embedding_bag(mode='sum') "
           f"{out['library_ms']:.4f} ms between events, host_us "
           f"{out['library_host_us']:.2f}, device_ms "
           f"{out['library_device_ms']:.4f}; equal to the plain version bit "
@@ -488,6 +574,55 @@ def k3_phase(dev, bench_g, hs, grqc_g) -> dict:
     ca-GrQc-scale graph's by-destination (forward push) and by-source
     (backward push) orders at B 50, and by source at BASE's batch of 512
     targets, which takes the 16-byte loads."""
+    return k3_cases(dev, [
+        dict(label="bench tail", n_rows=bench_g.n_pad, src=hs.tail_src,
+             ptr=hs.tail_ptr, b=2048, cold=True),
+        dict(label="grqc by-dst", n_rows=grqc_g.n_pad,
+             src=grqc_g.edge_src_bydst, ptr=grqc_g.bydst_ptr, b=50),
+        dict(label="grqc by-src", n_rows=grqc_g.n_pad, src=grqc_g.edge_dst,
+             ptr=grqc_g.bysrc_ptr, b=50),
+        dict(label="grqc by-src, BASE batch", n_rows=grqc_g.n_pad,
+             src=grqc_g.edge_dst, ptr=grqc_g.bysrc_ptr, b=BASE_BATCH),
+    ])
+
+
+def weighted_k3_phase(dev, wbench_g, wgrqc_g) -> dict:
+    """``[weighted:k3]``: K3's coefficient mode against its plain version
+    at the weighted paths' shapes: the weighted bench graph's whole push
+    (every edge, no hub split, B 2048; then the same edges in the
+    unweighted mode, for comparison) and the weighted ca-GrQc stand-in's
+    by-destination (``push_out``, ``edge_coef_bydst``) and by-source
+    (``pull_out_norm``, ``edge_coef``) orders at B 50 and 512."""
+    return k3_cases(dev, [
+        dict(label="weighted push", n_rows=wbench_g.n_pad,
+             src=wbench_g.edge_src_bydst, ptr=wbench_g.bydst_ptr,
+             coef=wbench_g.edge_coef_bydst, b=2048, cold=True,
+             plain_calls=50),
+        # the same edges in the unweighted mode: what the coefficient
+        # costs, apart from what the hubs' long segments cost
+        dict(label="weighted push's edges, no coefficient",
+             n_rows=wbench_g.n_pad, src=wbench_g.edge_src_bydst,
+             ptr=wbench_g.bydst_ptr, b=2048, cold=True, plain_calls=50),
+        dict(label="wgrqc by-dst", n_rows=wgrqc_g.n_pad,
+             src=wgrqc_g.edge_src_bydst, ptr=wgrqc_g.bydst_ptr,
+             coef=wgrqc_g.edge_coef_bydst, b=50),
+        dict(label="wgrqc by-src", n_rows=wgrqc_g.n_pad,
+             src=wgrqc_g.edge_dst, ptr=wgrqc_g.bysrc_ptr,
+             coef=wgrqc_g.edge_coef, b=50),
+        dict(label="wgrqc by-src, BASE batch", n_rows=wgrqc_g.n_pad,
+             src=wgrqc_g.edge_dst, ptr=wgrqc_g.bysrc_ptr,
+             coef=wgrqc_g.edge_coef, b=BASE_BATCH),
+    ], tag="weighted:k3")
+
+
+def k3_cases(dev, cases, tag="k3") -> dict:
+    """Each case (``label``, ``n_rows``, ``src``, ``ptr``, ``b`` columns,
+    ``coef`` for the coefficient mode, ``cold`` when the sweep's
+    elementwise passes leave L2 cold, ``plain_calls`` for the plain
+    version's host clock): K3 against its plain version bit for bit, two
+    launches bit-equal, then times by events, on the host and by CUDA-graph
+    replays, beside ``embedding_bag`` and the bound. The first case's times
+    head the returned dict."""
     import torch
 
     from ppr_tpu_torch.ops import row_gather as rgm
@@ -495,69 +630,71 @@ def k3_phase(dev, bench_g, hs, grqc_g) -> dict:
     out = {"max_abs_err": 0.0, "shapes": []}
     gen = torch.Generator(device=dev).manual_seed(3)
     flush = l2_flusher(dev)
-    for label, n_rows, src, ptr, b in (
-        ("bench tail", bench_g.n_pad, hs.tail_src, hs.tail_ptr, 2048),
-        ("grqc by-dst", grqc_g.n_pad, grqc_g.edge_src_bydst,
-         grqc_g.bydst_ptr, 50),
-        ("grqc by-src", grqc_g.n_pad, grqc_g.edge_dst, grqc_g.bysrc_ptr, 50),
-        ("grqc by-src, BASE batch", grqc_g.n_pad, grqc_g.edge_dst,
-         grqc_g.bysrc_ptr, BASE_BATCH),
-    ):
+    for case in cases:
+        label, n_rows, src, ptr, b = (case[k] for k in (
+            "label", "n_rows", "src", "ptr", "b"))
+        coef, cold = case.get("coef"), case.get("cold", False)
         table = torch.rand((n_rows, b), device=dev, generator=gen)
-        got = rgm.gather_segment_sum(table, src, ptr)
-        want = rgm.gather_segment_sum_ref(table, src, ptr)
+        got = rgm.gather_segment_sum(table, src, ptr, coef=coef)
+        want = rgm.gather_segment_sum_ref(table, src, ptr, coef)
         torch.cuda.synchronize()
         err, rel = float((got - want).abs().max()), rel_err(got, want)
         equal = torch.equal(got, want)
-        again = torch.equal(got, rgm.gather_segment_sum(table, src, ptr))
-        # in the sweep the caller's elementwise passes leave L2 cold
-        tail = label == "bench tail"
-        before = flush if tail else None
-        launches, calls = (20, 200) if tail else (1000, 1000)
+        again = torch.equal(got, rgm.gather_segment_sum(table, src, ptr,
+                                                        coef=coef))
+        before = flush if cold else None
+        launches, calls = (20, 200) if cold else (1000, 1000)
 
         def kernel():
-            return rgm.gather_segment_sum(table, src, ptr)
+            return rgm.gather_segment_sum(table, src, ptr, coef=coef)
 
         def plain():
-            return rgm.gather_segment_sum_ref(table, src, ptr)
+            return rgm.gather_segment_sum_ref(table, src, ptr, coef)
 
         ms = cuda_ms(kernel, before=before)
         plain_ms = cuda_ms(plain, before=before)
         split = split_times(kernel, launches, calls, before)
-        plain_host_us = host_us(plain, calls)
+        plain_host_us = host_us(plain, case.get("plain_calls", calls))
         edges = int(ptr[-1])
         segments = ptr.shape[0] - 1
+        longest = int((ptr[1:] - ptr[:-1]).max())
         rows = int(torch.unique(src[:edges]).numel())
         unique_bytes = 4.0 * ((rows + segments) * b + edges) \
-            + 8.0 * (segments + 1)
-        bound_ms, bound_by = bound(float(edges) * b, unique_bytes)
+            + 8.0 * (segments + 1) + (4.0 * edges if coef is not None else 0)
+        flop = float(edges) * b * (2 if coef is not None else 1)
+        bound_ms, bound_by = bound(flop, unique_bytes)
         plan = rgm.make_plan(n_rows, b, True)
-        print(f"[k3] {label}: {segments} segments, {edges} edges, "
-              f"B={b}, {plan.tiles(b)} tiles of {plan.tile_cols} columns: max abs "
-              f"err {err:.3e} (relative to the row {rel:.3e}), equal to the "
-              f"plain version bit for bit: {equal}, two launches bit-equal: "
-              f"{again}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"(median of 10{', L2 flushed before each' if tail else ''}), "
+        mode = "segments_coef" if coef is not None else "segments"
+        print(f"[{tag}] {label} ({mode}): {segments} segments (the "
+              f"longest {longest} edges), {edges} "
+              f"edges, B={b}, {plan.tiles(b)} tiles of {plan.tile_cols} "
+              f"columns: max abs err {err:.3e} (relative to the row "
+              f"{rel:.3e}), equal to the plain version bit for bit: {equal}, "
+              f"two launches bit-equal: {again}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (median of 10"
+              f"{', L2 flushed before each' if cold else ''}), "
               f"{plain_ms / ms:.2f}x; host_us {split['host_us']:.2f} (plain "
               f"{plain_host_us:.2f}), device_ms {split['device_ms']:.4f} (a "
               f"launch of {launches} in one CUDA graph); bound_ms "
               f"{bound_ms:.4f} ({bound_by}: {rows} distinct rows read), "
               f"share {bound_ms / split['device_ms']:.3f}")
-        shape = {"case": label, "segments": segments, "edges": edges,
-                 "cols": b, "tile_cols": plan.tile_cols, "ms": ms,
-                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+        shape = {"case": label, "mode": mode, "segments": segments,
+                 "longest_segment": longest,
+                 "edges": edges, "cols": b, "tile_cols": plan.tile_cols,
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, "plain_host_us": plain_host_us,
                  **split,
-                 **library_times(label, k3_library(table, src, ptr), want,
-                                 ms, split, launches, calls, before)}
-        if tail:
+                 **library_times(label, k3_library(table, src, ptr, coef),
+                                 want, ms, split, launches, calls, before,
+                                 tag)}
+        if cold:
             # what L2 delivers (every row read, the output) and what device
             # memory must (each distinct row once, the output, the indices)
             l2_bytes = 4.0 * (edges + segments) * b
             shape["l2_tb_s"] = l2_bytes / split["device_ms"] / 1e9
             shape["hbm_tb_s"] = unique_bytes / split["device_ms"] / 1e9
-            print(f"[k3] {label}: {l2_bytes / 1e9:.3f} GB of row reads and "
-                  f"output at {shape['l2_tb_s']:.2f} TB/s (L2); "
+            print(f"[{tag}] {label}: {l2_bytes / 1e9:.3f} GB of row reads "
+                  f"and output at {shape['l2_tb_s']:.2f} TB/s (L2); "
                   f"{unique_bytes / 1e9:.3f} GB of unique bytes at "
                   f"{shape['hbm_tb_s']:.2f} TB/s (device memory, peak "
                   f"{PEAK_BYTES / 1e12:.2f})")
@@ -835,13 +972,14 @@ def kernel_entry(line: str) -> str | None:
     return entry[1] + (f"<{', '.join(args)}>" if args else "")
 
 
-def profile_batch(algo, sources) -> None:
+def profile_batch(algo, sources, tag="profile",
+                  trace="bench_trace.json") -> None:
     """Trace one ``compute_topk_ids_batch``; print device time by aten
     operator, the kernels' span and the idle share inside it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    path = os.path.join("build", "ppr_tpu_torch", "bench_trace.json")
+    path = os.path.join("build", "ppr_tpu_torch", trace)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -862,14 +1000,14 @@ def profile_batch(algo, sources) -> None:
         covered_to = max(covered_to, end)
     span_us = covered_to - min(s for s, _ in kernels)
     sweeps = algo.last_iters
-    print(f"[profile] one batch, {sweeps} sweeps: {len(kernels)} kernels, "
+    print(f"[{tag}] one batch, {sweeps} sweeps: {len(kernels)} kernels, "
           f"busy {busy_us / 1e3:.1f} ms in a span of {span_us / 1e3:.1f} ms "
           f"(idle {100 * (1 - busy_us / span_us):.1f}%), host wall "
           f"{wall_ms:.1f} ms; trace {path}")
     mine = [e["dur"] for e in events
             if "ppr_gather_kernel" in e.get("name", "")]
     check(bool(mine), "the traced batch ran no K3")
-    print(f"[profile] {'K3 gather_segment_sum':32s} {sum(mine) / 1e3:9.2f} ms "
+    print(f"[{tag}] {'K3 gather_segment_sum':32s} {sum(mine) / 1e3:9.2f} ms "
           f"{100 * sum(mine) / busy_us:5.1f}% {len(mine):6d} launches "
           f"{sum(mine) / 1e3 / sweeps:7.3f} ms/sweep")
     # kernels also appear under their own names: keep the aten operators
@@ -878,7 +1016,7 @@ def profile_batch(algo, sources) -> None:
     ops.sort(key=lambda e: -e.self_device_time_total)
     for e in ops[:16]:
         us = e.self_device_time_total
-        print(f"[profile] {e.key:32s} {us / 1e3:9.2f} ms "
+        print(f"[{tag}] {e.key:32s} {us / 1e3:9.2f} ms "
               f"{100 * us / busy_us:5.1f}% {e.count:6d} calls "
               f"{us / 1e3 / sweeps:7.3f} ms/sweep")
 
@@ -1350,6 +1488,7 @@ def reset_launches() -> None:
     dense_power.launches = 0
     dense_power.pagerank_launches = 0
     row_gather.segment_sum_launches = 0
+    row_gather.segment_sum_coef_launches = 0
     row_gather.gather_launches = 0
     probe.reset()
 
@@ -1359,6 +1498,7 @@ def read_launches() -> dict[str, int]:
 
     return {"k1": dense_power.launches, "k2": dense_power.pagerank_launches,
             "k0": probe.launches, "k3": row_gather.segment_sum_launches,
+            "k3_coef": row_gather.segment_sum_coef_launches,
             "gather": row_gather.gather_launches}
 
 
@@ -1825,6 +1965,396 @@ def walk_path(dev, ds, hs) -> dict[str, int]:
     return counts
 
 
+@contextlib.contextmanager
+def counting_plain_k3():
+    """Count the calls of K3's plain version while the block runs (a
+    weighted push on the card must launch the kernel, never the plain
+    pair): yields a one-item list with the count."""
+    from ppr_tpu_torch.ops import row_gather
+
+    calls = [0]
+    plain = row_gather.gather_segment_sum_ref
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return plain(*args, **kwargs)
+
+    row_gather.gather_segment_sum_ref = counted
+    try:
+        yield calls
+    finally:
+        row_gather.gather_segment_sum_ref = plain
+
+
+def weighted_oracle(g, sources) -> np.ndarray:
+    """The PPR rows of ``sources`` on a weighted graph by
+    ``power_method_batch``'s iteration, ``ITERS`` rounds, in float64 through
+    torch's sparse product: independent of K3's coefficient mode, which the
+    weighted path under test runs. Returns ``[B, n_pad]`` float32."""
+    import torch
+
+    m = g.m
+    op = torch.sparse_coo_tensor(
+        torch.stack([g.edge_dst[:m].long(), g.edge_src[:m].long()]),
+        g.edge_coef[:m].double(), (g.n_pad, g.n_pad),
+        check_invariants=True).coalesce()
+    src_t = torch.nn.functional.one_hot(
+        torch.as_tensor(np.asarray(sources), dtype=torch.long,
+                        device=g.device), g.n_pad).double().T
+    dangling = ((g.out_deg == 0) & (g.node_mask > 0))[:, None]
+    p = torch.zeros_like(src_t)
+    r = src_t
+    for _ in range(ITERS):
+        p = p + ALPHA * r
+        rem = (1.0 - ALPHA) * r
+        rem_dang = torch.where(dangling, rem, 0.0)
+        r = op @ (rem - rem_dang) + rem_dang.sum(dim=0) * src_t
+    return p.T.float().cpu().numpy()
+
+
+def builder_paths(g, wg) -> None:
+    """``[weighted]``: the native builder against the numpy paths on the
+    host, at the smoke's sizes: the CSR of the bench graph's edges (in a
+    seeded shuffle), the parse of those edges written as a ``src dst``
+    file, and the alias tables of the weighted bench graph. Both paths must
+    give the same arrays; prints each one's seconds (the best of three for
+    the native calls and the numpy CSR, one run of each Python loop)."""
+    import tempfile
+
+    from ppr_tpu_torch import native
+    from ppr_tpu_torch.graph.csr import alias_tables_python, csr_numpy
+    from ppr_tpu_torch.graph.io import parse_edge_list_python
+
+    if not native.available():
+        print("[weighted] no C++ compiler: every graph is built by the "
+              "numpy paths")
+        return
+
+    def best(fn, reps):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t0)
+        return out, min(times)
+
+    m = g.m
+    perm = np.random.default_rng(5).permutation(m)
+    src = g.edge_src[:m].cpu().numpy().astype(np.int64)[perm]
+    dst = g.edge_dst[:m].cpu().numpy().astype(np.int64)[perm]
+    fast, t_fast = best(
+        lambda: native.build_csr_native(src, dst, g.n, g.n_pad), 3)
+    slow, t_slow = best(lambda: csr_numpy(src, dst, g.n_pad), 3)
+    same_csr = all(np.array_equal(a, b) for a, b in zip(fast, slow[1:]))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bench_edges.txt")
+        np.savetxt(path, np.stack([src, dst], axis=1), fmt="%d")
+        cap = max(os.path.getsize(path) // 3 + 16, 1024)
+        parsed, t_parse = best(
+            lambda: native.parse_edge_list_native(path, cap), 3)
+        py, t_py = best(lambda: parse_edge_list_python(path), 1)
+    same_parse = all(np.array_equal(a, b) for a, b in zip(parsed, py))
+    indptr = wg.indptr.cpu().numpy()
+    coef = wg.edge_coef[: wg.m].cpu().numpy().astype(np.float64)
+    tables, t_alias = best(
+        lambda: native.build_alias_native(indptr, coef, wg.m_pad), 3)
+    loop, t_loop = best(lambda: alias_tables_python(indptr, coef, wg.m_pad),
+                        1)
+    same_alias = all(np.array_equal(a, b) for a, b in zip(tables, loop))
+    print(f"[weighted] host build paths, native C++ vs numpy/Python: CSR of "
+          f"the bench graph's {m} edges {t_fast * 1e3:.1f} vs "
+          f"{t_slow * 1e3:.1f} ms; parse of them as a text file "
+          f"{t_parse * 1e3:.1f} vs {t_py * 1e3:.1f} ms; alias tables of the "
+          f"weighted bench graph {t_alias * 1e3:.1f} vs {t_loop * 1e3:.1f} "
+          f"ms; same arrays: CSR {same_csr}, parse {same_parse}, alias "
+          f"{same_alias}")
+    check(same_csr and same_parse and same_alias,
+          "[weighted] the native builder and the numpy paths disagree")
+
+
+def weighted_path(dev, wds, unweighted_walk_rate: float) -> dict[str, int]:
+    """The weighted graphs' path: ``[weighted:oracle]``, ``[weighted:fora]``
+    (with ``[weighted:profile]``), ``[weighted:walks]`` and
+    ``[protocol:weighted]``; returns the path's launch counts."""
+    import tempfile
+
+    import torch
+
+    from ppr_tpu_torch.graph.io import load_edge_list, synthetic_weighted
+    from ppr_tpu_torch.harness import PerfHarness
+    from ppr_tpu_torch.models.config import AlgoConf
+    from ppr_tpu_torch.models.fora import ForaWholeGraph
+    from ppr_tpu_torch.models.monte_carlo import MonteCarlo, mc_num_walks
+    from ppr_tpu_torch.models.power_method import power_method_batch
+    from ppr_tpu_torch.ops import dense_power
+    from ppr_tpu_torch.ops.walk import weighted_walk_counts
+    from ppr_tpu_torch.service import PPRService
+    from ppr_tpu_torch.utils.metrics import max_abs_err
+
+    reset_launches()
+    g = wds.graph
+    rng = np.random.default_rng(12)
+    with counting_plain_k3() as plain_calls:
+        # --- [weighted:oracle] ----------------------------------------------
+        dense_ds = synthetic_weighted(1000, 16, seed=11,
+                                      dense_threshold=1024, device=dev)
+        dense = dense_ds.graph
+        sparse = synthetic_weighted(1000, 16, seed=11, dense_threshold=0,
+                                    device=dev).graph
+        check(dense.n_pad == 1024 and dense_power.supports(dense),
+              "[weighted:oracle] K1 does not take the weighted 1000-node "
+              "graph")
+        src50 = rng.choice(1000, 50, replace=False)
+        k1_before = dense_power.launches
+        via_k1 = AlgoConf(ALPHA).set_conf_power_method(dense_ds) \
+            .compute_whole_graph_batch(src50)
+        via_k3 = power_method_batch(sparse, src50, ALPHA, ITERS) \
+            .cpu().numpy()
+        onehot = torch.nn.functional.one_hot(
+            torch.as_tensor(src50, device=dev), dense.n_pad).float()
+        plain = dense_power.dense_power_iterations_ref(
+            dense, onehot, ALPHA, ITERS).cpu().numpy()
+        err_sparse = float(np.abs(via_k1 - via_k3).max())
+        err_plain = float(np.abs(via_k1 - plain).max())
+        mass = via_k1.astype(np.float64).sum(axis=1)
+        print(f"[weighted:oracle] PowerMethod on synthetic_weighted(1000, "
+              f"16, seed=11), n_pad 1024, B 50, {ITERS} rounds: K1 launches "
+              f"{dense_power.launches - k1_before}; max|K1 - sparse "
+              f"weighted path (K3 coefficient mode)| {err_sparse:.3e}, "
+              f"max|K1 - plain| {err_plain:.3e}; row mass "
+              f"{mass.min():.7f}..{mass.max():.7f}")
+        check(dense_power.launches > k1_before,
+              "[weighted:oracle] the oracle did not launch K1")
+        check(err_sparse <= K1_TOL and err_plain <= K1_TOL,
+              f"[weighted:oracle] K1 {err_sparse} from the sparse path, "
+              f"{err_plain} from its plain version (bar {K1_TOL})")
+
+        # --- [weighted:fora] ------------------------------------------------
+        svc = PPRService.from_dataset(wds, alpha=ALPHA, eps=EPS, k=K,
+                                      seed=7)
+        algo = svc._topk_algo
+        check(algo.hub_split is None, "[weighted:fora] a hub split")
+        sources = rng.integers(0, g.n, 2048)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        vals, ids = algo.compute_topk_ids_batch(sources, K, EPS)  # warm-up
+        warm_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hits = svc.top_k(sources, k=K)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        sweeps = algo.last_iters
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        annealed = algo._skip_push(EPS * 0.5, len(sources))
+        n_acc = 32
+        oracle = weighted_oracle(g, sources[:n_acc])
+        tol = EPS / g.n
+        prec = precision(oracle, tie_tolerant_ids(vals, ids, n_acc, tol))
+        print(f"[weighted:fora] ForaTopk(push='auto') on the weighted bench "
+              f"graph, no hub split, B={len(sources)} k={K} eps={EPS}: "
+              f"top_k {dt * 1e3:.1f} ms = {len(sources) / dt:.1f} qps, "
+              f"sweeps {sweeps} ({dt * 1e3 / max(sweeps or 1, 1):.2f} "
+              f"ms/sweep incl. epilogue), warm-up call {warm_s:.2f} s, peak "
+              f"device memory {peak_gb:.2f} GB; the cost model's path: "
+              f"{'the annealed loop' if annealed else 'push+walks'}; "
+              f"precision@10 over {n_acc} rows {prec:.4f} (tie tol "
+              f"{tol:.3e}) against the weighted oracle (the power method, "
+              f"{ITERS} iterations, in float64 by torch's sparse product)")
+        check(len(hits) == len(sources) and all(hits),
+              "[weighted:fora] empty hit lists")
+        check(prec >= 0.99, f"[weighted:fora] precision@10 {prec} < 0.99")
+        profile_batch(algo, sources, tag="weighted:profile",
+                      trace="weighted_trace.json")
+
+        src64 = rng.integers(0, g.n, 64)
+        oracle64 = weighted_oracle(g, src64)
+        for completion in ("walks", "spmv"):
+            wg = ForaWholeGraph(wds, ALPHA, seed=7, completion=completion)
+            wg.compute_whole_graph_batch(src64, EPS)           # untimed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = wg.compute_whole_graph_batch(src64, EPS)
+            dt = time.perf_counter() - t0
+            err = float(np.mean([max_abs_err(scores[i], oracle64[i])
+                                 for i in range(64)]))
+            print(f"[weighted:fora] ForaWholeGraph(completion='"
+                  f"{completion}') B 64 eps {EPS}: {wg.last_rounds} push "
+                  f"rounds; {dt * 1e3:.1f} ms a batch; mean max-err "
+                  f"{err:.3e}")
+            check(err < 0.03, f"[weighted:fora] whole-graph {completion}: "
+                  f"mean max-err {err}")
+
+        # --- [weighted:walks] -----------------------------------------------
+        w = 1 << 22
+        starts = torch.as_tensor(rng.integers(0, g.n, w), dtype=torch.int32,
+                                 device=dev)
+        rows = torch.zeros(w, dtype=torch.int64, device=dev)
+        weights = torch.full((w,), 1.0 / w, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        times = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            counts = weighted_walk_counts(g, starts, rows, weights, gen,
+                                          ALPHA, 1)
+            torch.cuda.synchronize()
+            if i:
+                times.append(time.perf_counter() - t0)
+            total = float(counts.double().sum())
+            check(abs(total - 1.0) <= 1e-6 and not counts[:, g.n:].any(),
+                  f"[weighted:walks] mass {total} is not 1")
+        rate = w / float(np.median(times))
+        print(f"[weighted:walks] weighted_walk_counts on the weighted bench "
+              f"graph (alias step), {w} walkers: {rate:.4g} walks/s (median "
+              f"of 3; ms of each call "
+              f"{', '.join(f'{t * 1e3:.2f}' for t in times)}), against "
+              f"{unweighted_walk_rate:.4g} on the bench graph ([walk]); mass "
+              f"1 within 1e-6 in every call")
+        src4 = rng.integers(0, g.n, 4)
+        oracle4 = weighted_oracle(g, src4)
+        mc = MonteCarlo(wds, ALPHA, seed=1)
+        omega = mc_num_walks(EPS, mc.delta, mc.pfail)
+        mc.compute_whole_graph_batch(src4[:1], EPS)           # untimed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = mc.compute_whole_graph_batch(src4, EPS)
+        dt = time.perf_counter() - t0
+        err = float(np.mean([max_abs_err(scores[i], oracle4[i])
+                             for i in range(4)]))
+        mass = scores.astype(np.float64).sum(axis=1)
+        print(f"[weighted:walks] Monte-Carlo, 4 sources, eps {EPS}: {omega} "
+              f"walks a source; {dt * 1e3 / 4:.1f} ms a query "
+              f"({4 * omega / dt:.4g} walks/s); mean max-err {err:.4f} "
+              f"against the weighted oracle; row mass "
+              f"{mass.min():.9f}..{mass.max():.9f}")
+        check(err < 0.05, f"[weighted:walks] mean max-err {err} >= 0.05")
+        check(np.abs(mass - 1.0).max() <= 1e-6,
+              f"[weighted:walks] row mass {mass}")
+
+        # --- [protocol:weighted] --------------------------------------------
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "wgrqc.txt")
+            write_weighted_edges(path)
+            ds_p = load_edge_list(path, weighted=True, device=dev)
+        check(ds_p.graph.weighted and not ds_p.graph.has_dense,
+              "[protocol:weighted] the graph is not weighted and sparse")
+        work = os.path.abspath(os.path.join(PROTOCOL_DIR, "weighted"))
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        k3_before = read_launches()["k3_coef"]
+        cwd = os.getcwd()
+        t0 = time.perf_counter()
+        try:
+            os.chdir(work)
+            with open(os.path.join(work, "cli.log"), "w") as f, \
+                    contextlib.redirect_stdout(f):
+                PerfHarness(ds_p, alpha=ALPHA, seed=0, out_dir=work) \
+                    .algo_perf_batch_test(
+                        50, K, sweep="grqc", tests=(1, 2),
+                        algos={"FWDPUSH", "NEO4J_METHOD", "FORA_TOPK"})
+        finally:
+            os.chdir(cwd)
+        wall = time.perf_counter() - t0
+        rows = protocol_rows(os.path.join(work, "wgrqc_AlgoPerfResults.txt"))
+        print(f"[protocol:weighted] {ds_p.name}: {ds_p.graph.n} nodes, "
+              f"{ds_p.graph.m} weighted edges (load_edge_list(weighted="
+              f"True)), PerfHarness Tests 1-2, FWDPUSH, NEO4J_METHOD, "
+              f"FORA_TOPK, 50 queries: wall {wall:.1f} s; K3 coefficient-"
+              f"mode launches {read_launches()['k3_coef'] - k3_before}")
+        check_protocol_rows("weighted", {
+            key: v for key, v in rows.items() if key[1] != "FORA_TOPK"},
+            jax_rows={key: v for key, v in WEIGHTED_JAX_ROWS.items()
+                      if key[1] != "FORA_TOPK"})
+        check_walk_rows("weighted", {
+            key: v for key, v in rows.items() if key[1] == "FORA_TOPK"},
+            {key: v for key, v in WEIGHTED_JAX_ROWS.items()
+             if key[1] == "FORA_TOPK"})
+    counts = read_launches()
+    print(f"[weighted] weighted path launches: K3 coefficient mode "
+          f"{counts['k3_coef']} of K3's {counts['k3']}, K1 {counts['k1']}, "
+          f"K2 {counts['k2']}, K0 {counts['k0']}; calls of K3's plain "
+          f"version {plain_calls[0]}")
+    check(counts["k3_coef"] > 0, "the weighted path did not launch K3's "
+          "coefficient mode")
+    check(counts["k3"] == counts["k3_coef"],
+          "the weighted path launched K3's unweighted mode")
+    check(plain_calls[0] == 0, "the weighted path ran K3's plain version "
+          "on the card")
+    check(counts["k1"] > 0, "the weighted oracle did not launch K1")
+    check(counts["k0"] == 1, f"K0 ran {counts['k0']} times, not once")
+    return counts
+
+
+def neostore_path(dev) -> dict[str, int]:
+    """``[neostore]``: the CLI on a Neo4j store written to a temporary
+    directory (the ``synth:107x3@7`` edges with names, beside edges of a
+    second type), against the same command on ``--db synth:107x3@7``;
+    ``--rel NOPE`` must raise. Returns the path's launch counts."""
+    import io
+    import tempfile
+
+    import importlib.util
+
+    from ppr_tpu_torch import cli
+
+    # the store writer lives with the reader's tests; loaded by path, so no
+    # installed package named "tests" can stand in for the repository's
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_neostore", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tests", "test_torch_neostore.py"))
+    writer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(writer)
+
+    reset_launches()
+    args = ["--sweep", "got", "--query", "50", "--k", str(K), "--tests",
+            "1,2", "--algos", "NEO4J_METHOD,FORA_TOPK"]
+    with tempfile.TemporaryDirectory() as tmp:
+        db = os.path.join(tmp, "synth.db")
+        t0 = time.perf_counter()
+        writer.write_synth_store(db)
+        write_s = time.perf_counter() - t0
+        store_rows, wall, _ = run_protocol("neostore", ["--db", db, *args])
+        raised = None
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["--db", db, "--rel", "NOPE", "--device", "cuda"])
+        except ValueError as e:
+            raised = str(e)
+    synth_rows, synth_wall, _ = run_protocol("neostore_synth",
+                                             ["--db", "synth:107x3@7", *args])
+    print(f"[neostore] a Neo4j 3.5 store of synth:107x3@7 (107 nodes, 352 "
+          f"Relation edges, 20 KNOWS edges) written in {write_s:.2f} s; "
+          f"--db <store> --sweep got, NEO4J_METHOD and FORA_TOPK, Tests 1-2: "
+          f"wall {wall:.1f} s (--db synth:107x3@7: {synth_wall:.1f} s); "
+          f"--rel NOPE raised: {raised!r}")
+    check(raised is not None and "NOPE" in raised,
+          "[neostore] --rel NOPE did not raise")
+    check(set(store_rows) == set(synth_rows),
+          f"[neostore] sections {sorted(store_rows)} vs {sorted(synth_rows)}")
+    for key in sorted(store_rows):
+        got, want = store_rows[key], synth_rows[key]
+        if key[0] == 1:
+            # param and max-err; the time column may differ
+            same = [(r[0], r[-1]) for r in got] == \
+                [(r[0], r[-1]) for r in want]
+            print(f"[neostore] test 1 {key[1]}: "
+                  + "; ".join(f"param {r[0]} max-err {r[-1]}" for r in got)
+                  + f"; equal to synth:107x3@7's: {same}")
+            check(same, f"[neostore] test 1 {key[1]}: {got} vs {want}")
+        else:
+            print(f"[neostore] test {key[0]} {key[1]}: " + "; ".join(
+                f"param {r[0]} precision {r[-2]}" for r in got)
+                + " (synth:107x3@7: " + ", ".join(r[-2] for r in want) + ")")
+    check_protocol_rows("neostore", store_rows)
+    counts = read_launches()
+    print(f"[neostore] store path launches: K2 {counts['k2']}, K1 "
+          f"{counts['k1']}, K3 {counts['k3']}, K0 {counts['k0']}")
+    check(counts["k2"] > 0, "the store's Neo4j method did not launch K2")
+    check(counts["k0"] == 1, f"K0 ran {counts['k0']} times, not once")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1835,7 +2365,9 @@ def main() -> int:
 
     from ppr_tpu_torch.cli import load_dataset
     from ppr_tpu_torch.device import set_exact_f32_matmul
-    from ppr_tpu_torch.graph.io import load_default, synthetic_powerlaw
+    from ppr_tpu_torch import native
+    from ppr_tpu_torch.graph.io import (load_default, synthetic_powerlaw,
+                                        synthetic_weighted)
     from ppr_tpu_torch.models.config import AlgoConf
     from ppr_tpu_torch.models.power_method import power_method_batch
     from ppr_tpu_torch.ops import cuda_build, dense_power, probe
@@ -1926,7 +2458,7 @@ def main() -> int:
     del table, ablation_libs
 
     # --- the walk engine and the cost model's constants --------------------
-    walk_phase(dev, ds.graph)
+    walk_rates = walk_phase(dev, ds.graph)
     costs = calibrate_phase(dev, ds)
 
     # --- launch counts: the serving path from here on --------------------
@@ -2036,10 +2568,35 @@ def main() -> int:
 
     # --- 11. the walk path ------------------------------------------------
     walks = walk_path(dev, ds, hs)
+
+    # --- 12. weighted graphs and the Neo4j store -------------------------
+    t0 = time.perf_counter()
+    wds = synthetic_weighted(65536, 16, seed=42, dense_threshold=0,
+                             device=dev)
+    torch.cuda.synchronize()
+    n, deg, seed = WEIGHTED_GRQC
+    wgrqc = synthetic_weighted(n, deg, seed=seed, dense_threshold=0,
+                               device=dev).graph
+    print(f"[weighted] bench graph synthetic_weighted(65536, 16, seed=42): "
+          f"n={wds.n} m={wds.graph.m} n_pad={wds.graph.n_pad}, weighted "
+          f"{wds.graph.weighted}, built by the "
+          f"{'native C++' if native.available() else 'numpy'} builder "
+          f"(alias tables included) and placed on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(wds.graph.weighted and wds.graph.m == ds.graph.m,
+          "[weighted] the weighted bench graph is not the bench graph's "
+          "edges")
+    builder_paths(ds.graph, wds.graph)
+    k3c = weighted_k3_phase(dev, wds.graph, wgrqc)
+    del wgrqc
+    weighted = weighted_path(dev, wds, walk_rates[4])
+    del wds
+    store = neostore_path(dev)
     launches = {k: serving[k] + layer[k] + protocol[k] + walks[k]
-                for k in serving}
+                + weighted[k] + store[k] for k in serving}
     print(f"[launches] serving path {serving}, serving layer {layer}, "
-          f"protocol path {protocol}, walk path {walks}")
+          f"protocol path {protocol}, walk path {walks}, weighted path "
+          f"{weighted}, store path {store}")
     source = "ppr_tpu_torch/csrc/dense_power.cu"
     print(json.dumps({"kernels": [{
         "name": "dense_power_iterations",
@@ -2092,8 +2649,11 @@ def main() -> int:
         "source": "ppr_tpu_torch/csrc/row_gather.cu",
         "replaces": "scripts/bench_pallas_row_gather.py:41",
         "replaces_mode": "gather_accum",
+        "modes": ["segments", "segments_coef"],
         "launches": launches["k3"],
-        "max_abs_err": k3["max_abs_err"],
+        "launches_coef": launches["k3_coef"],
+        "launches_coef_weighted_path": weighted["k3_coef"],
+        "max_abs_err": max(k3["max_abs_err"], k3c["max_abs_err"]),
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"],
@@ -2105,6 +2665,10 @@ def main() -> int:
         "library_device_ms": k3["library_device_ms"],
         "shapes": k3["shapes"],
         "ablation": k3["ablation"],
+        "coef": {key: k3c[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "host_us", "device_ms", "library_host_us",
+            "library_device_ms", "shapes")},
     }, {
         "name": "row_gather",
         "route": "cuda",

@@ -1,8 +1,10 @@
 """CLI entry point — port of ``ppr_tpu/cli.py``, with the flags of the
 reference's main (PPR.java:154-200; defaults at :168-184).
 
-``--db`` names a directory holding a Neo4j-import CSV pair, a SNAP edge-list
-file, or a ``synth:<n>x<deg>[@seed]`` / ``synth:<name>`` spec; the program
+``--db`` names a Neo4j 3.5 store directory (``--rel`` picks its
+relationship type), a directory holding a Neo4j-import CSV pair, a SNAP
+edge-list file, or a ``synth:<n>x<deg>[@seed]`` / ``synth:<name>`` spec;
+the program
 runs the reference's batch benchmark (``algo_perf_batch_test(query, k)``,
 PPR.java:192) through :class:`~ppr_tpu_torch.harness.PerfHarness`, on the
 card; ``--device cpu`` asks for the CPU, and without it a process that
@@ -16,8 +18,8 @@ Usage::
 All six algorithms run: Monte-Carlo, Forward Push, FORA whole-graph and
 top-k, BASE and the Neo4j method, with the power method as the oracle.
 ``--fora-completion`` picks FORA's residue completion (``auto``: the cost
-model). A Neo4j store directory (ROADMAP.md, queue 1, item 15) and
-``--mesh`` (item 18) raise ``NotImplementedError``.
+model). ``--mesh`` (ROADMAP.md, queue 1, item 18) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import os
 import sys
 
 from .graph import io
+from .graph.neostore import is_neo4j_store, load_neo4j_store
 from .harness import PerfHarness
 from .utils.timer import trace
 
@@ -50,11 +53,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--label", default="Person",
                    help="node label (parity flag)")
     p.add_argument("--rel", default="Relation",
-                   help="relationship type (parity flag)")
+                   help="relationship type kept from a Neo4j store "
+                        "(default Relation)")
     p.add_argument("--db", default=io.REFERENCE_GOT_DIR,
-                   help="dataset: dir with *_Nodes.csv/*_Rels.csv, an edge "
-                        "list file, or synth:<n>x<deg>[@seed] "
-                        "(default: the repository's dataset/got)")
+                   help="dataset: a Neo4j store dir, a dir with "
+                        "*_Nodes.csv/*_Rels.csv, an edge list file, or "
+                        "synth:<n>x<deg>[@seed] (default: the "
+                        "repository's dataset/got)")
     p.add_argument("--seed", type=int, default=0, help="query/RNG seed")
     p.add_argument("--sequential", action="store_true",
                    help="time queries one at a time (reference protocol) "
@@ -100,14 +105,12 @@ NAMED_SYNTH = {
     "amazon": (262144, 4, 104),        # amazon0302: 262,111 n / 1.23M m
 }
 
-#: a Neo4j store directory holds this file (graph/neostore.py)
-_NEOSTORE_MARKER = "neostore.nodestore.db"
-
 
 def load_dataset(db: str, rel: str | None = None, device=None):
     """The dataset ``db`` names, on ``device`` (default: the card; raises
-    when no card is visible). ``rel`` filters a Neo4j store load in the JAX
-    package; the formats ported here are single-type and ignore it."""
+    when no card is visible). ``rel`` keeps only that relationship type of
+    a Neo4j store (the reference's ``--rel``, PPR.java:126); the CSV,
+    edge-list and synthetic sources are single-type and ignore it."""
     if db.startswith("synth:"):
         spec = db[len("synth:"):]
         if spec in NAMED_SYNTH:
@@ -121,11 +124,10 @@ def load_dataset(db: str, rel: str | None = None, device=None):
         n, deg = (int(x) for x in spec.split("x"))
         return io.synthetic_powerlaw(n, deg, seed=seed, device=device)
     if os.path.isdir(db):
-        if os.path.exists(os.path.join(db, _NEOSTORE_MARKER)):
-            raise NotImplementedError(
-                "reading a Neo4j store is not ported yet (ROADMAP.md, "
-                "queue 1, item 15)"
-            )
+        if is_neo4j_store(db):
+            # the reference's own entry path: an embedded-Neo4j store dir
+            # (PPR.java:52-60 on target/got.db), read without a JVM
+            return load_neo4j_store(db, rel_type=rel, device=device)
         for f in os.listdir(db):
             if f.endswith("_Nodes.csv"):
                 prefix = f[: -len("_Nodes.csv")]

@@ -14,6 +14,27 @@
 // the place of index_select + segment_reduce and never writes their
 // [m, cols] per-edge intermediate.
 //
+// ppr_gather_segment_sum_coef is K3's coefficient mode, the push of a
+// weighted graph (the TPU ran it as XLA's gather, multiply and segment_sum,
+// ppr_tpu/ops/spmv.py:66-67,110-112,236-237): with one f32 coefficient an
+// edge (w_e / W_src; 0 on padding edges, which name the zero sentinel row),
+//
+//     out[d, :] = sum over e in [ptr[d], ptr[d+1]) of coef[e] * table[src[e], :]
+//
+// The product is rounded to f32 before it is added (__fmul_rn, then
+// __fadd_rn, per component of a float4), so nvcc does not contract the two
+// into an fma: the sum has the plain version's bits (index_select, times
+// coef, segment_reduce), as the unweighted mode has. A coefficient is loaded
+// once an edge with the policy of src, by every lane of the destination:
+// 4 bytes an edge more than the unweighted mode reads; the layouts, the
+// slabs and the rounds are the same. A weighted graph has no hub split, so
+// its push walks the hubs' segments too, and the longest segment bounds a
+// launch: at the weighted bench graph's whole push (1.04M edges, B 2048,
+// one segment of 11,861 edges) 4.51 ms by CUDA-graph replays, against
+// 4.42 ms for the same edges in the unweighted mode (the coefficient costs
+// 2%) and 0.53 ms at the hub split's tail (NVIDIA H100 80GB HBM3 at 700 W;
+// chip_smoke.py [weighted:k3]).
+//
 // ppr_row_gather replaces P1, P2 and P3 (scripts/probe_mosaic_gather.py:
 // vmem_axis0_gather, vmem_dynamic_row_loop, hbm_indexed_row_dma) and the
 // gather mode of P4: out[i, :] = table[idx[i], :]. It is K3 with unit
@@ -117,6 +138,19 @@ __device__ __forceinline__ void add_to(float4& acc, const float4& v) {
   acc.w += v.w;
 }
 
+// acc += c * v with the product rounded first: no fma contraction
+__device__ __forceinline__ void add_scaled(float& acc, float c, float v) {
+  acc = __fadd_rn(acc, __fmul_rn(c, v));
+}
+
+__device__ __forceinline__ void add_scaled(float4& acc, float c,
+                                           const float4& v) {
+  acc.x = __fadd_rn(acc.x, __fmul_rn(c, v.x));
+  acc.y = __fadd_rn(acc.y, __fmul_rn(c, v.y));
+  acc.z = __fadd_rn(acc.z, __fmul_rn(c, v.z));
+  acc.w = __fadd_rn(acc.w, __fmul_rn(c, v.w));
+}
+
 template <typename T>
 __device__ __forceinline__ T zero();
 template <>
@@ -178,14 +212,15 @@ __device__ __forceinline__ void st_stream(V* p, const V& v) { __stcs(p, v); }
 #endif
 
 // One destination's share of one tile: the rows of segment [lo, hi) of
-// `src`, columns [col, col + width) of each, added in edge order and stored
-// to out[d]. Full rounds of kUnroll rows, then one round that holds what is
-// left, so every row of a round is in flight before the first is added.
-template <typename T, bool kSegments>
+// `src`, columns [col, col + width) of each, added in edge order (each times
+// coef[e] when kCoef) and stored to out[d]. Full rounds of kUnroll rows,
+// then one round that holds what is left, so every row of a round is in
+// flight before the first is added.
+template <typename T, bool kSegments, bool kCoef>
 __device__ __forceinline__ void gather_one(
     const float* __restrict__ table, const int* __restrict__ src,
-    const long long* __restrict__ ptr, float* __restrict__ out, unsigned d,
-    int col, int cols, uint64_t keep) {
+    const float* __restrict__ coef, const long long* __restrict__ ptr,
+    float* __restrict__ out, unsigned d, int col, int cols, uint64_t keep) {
   constexpr int kUnroll = kUnrollOf<T>;
   const float* base = table + col;
   T acc;
@@ -201,24 +236,46 @@ __device__ __forceinline__ void gather_one(
 #endif
       return reinterpret_cast<const T*>(base + static_cast<size_t>(s) * cols);
     };
+    // the coefficient of edge `at` (kCoef only)
+    auto weight = [&](int at) {
+      if constexpr (kCoef) {
+        return ld_keep(coef + at, keep);
+      } else {
+        return 1.0f;
+      }
+    };
     for (; e + kUnroll <= hi; e += kUnroll) {
       const T* rows[kUnroll];
+      float c[kUnroll];
       T v[kUnroll];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) rows[u] = row(e + u);
+      for (int u = 0; u < kUnroll; ++u) {
+        rows[u] = row(e + u);
+        c[u] = weight(e + u);
+      }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) v[u] = ld_keep(rows[u], keep);
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) add_to(acc, v[u]);
+      for (int u = 0; u < kUnroll; ++u) {
+        if constexpr (kCoef) {
+          add_scaled(acc, c[u], v[u]);
+        } else {
+          add_to(acc, v[u]);
+        }
+      }
     }
     if constexpr (kUnroll > 1) {
       if (e < hi) {
         const int n = hi - e;
         const T* rows[kUnroll - 1];
+        float c[kUnroll - 1];
         T v[kUnroll - 1];
 #pragma unroll
         for (int u = 0; u < kUnroll - 1; ++u) {
-          if (u < n) rows[u] = row(e + u);
+          if (u < n) {
+            rows[u] = row(e + u);
+            c[u] = weight(e + u);
+          }
         }
 #pragma unroll
         for (int u = 0; u < kUnroll - 1; ++u) {
@@ -226,7 +283,13 @@ __device__ __forceinline__ void gather_one(
         }
 #pragma unroll
         for (int u = 0; u < kUnroll - 1; ++u) {
-          if (u < n) add_to(acc, v[u]);
+          if (u < n) {
+            if constexpr (kCoef) {
+              add_scaled(acc, c[u], v[u]);
+            } else {
+              add_to(acc, v[u]);
+            }
+          }
         }
       }
     }
@@ -246,11 +309,13 @@ __device__ __forceinline__ void gather_one(
 
 // T is float (one column a lane) or float4 (four); L lanes share a
 // destination, so a warp takes 32 / L consecutive destinations (a group) of
-// one tile of L loads; kSegments false compiles ptr out (unit segments).
-// blockIdx.y, the slow dimension, is the tile: the grid is tile-major.
-template <typename T, int L, bool kSegments>
+// one tile of L loads; kSegments false compiles ptr out (unit segments),
+// kCoef false compiles coef out. blockIdx.y, the slow dimension, is the
+// tile: the grid is tile-major.
+template <typename T, int L, bool kSegments, bool kCoef>
 __global__ void __launch_bounds__(kThreads)
 ppr_gather_kernel(const float* __restrict__ table, const int* __restrict__ src,
+                  const float* __restrict__ coef,
                   const long long* __restrict__ ptr, float* __restrict__ out,
                   int n_out, int cols) {
   constexpr int kWidth = sizeof(T) / sizeof(float);
@@ -261,41 +326,46 @@ ppr_gather_kernel(const float* __restrict__ table, const int* __restrict__ src,
   const int col = static_cast<int>(blockIdx.y) * (L * kWidth) +
                   (lane % L) * kWidth;
   if (d < static_cast<unsigned>(n_out) && col < cols) {
-    gather_one<T, kSegments>(table, src, ptr, out, d, col, cols,
-                             keep_policy());
+    gather_one<T, kSegments, kCoef>(table, src, coef, ptr, out, d, col,
+                                    cols, keep_policy());
   }
 }
 
-using Kernel = void (*)(const float*, const int*, const long long*, float*,
-                        int, int);
+using Kernel = void (*)(const float*, const int*, const float*,
+                        const long long*, float*, int, int);
 
 // The kernel of a layout: `width` floats a load, `lanes` lanes a destination.
-template <bool kSegments>
+template <bool kSegments, bool kCoef>
 Kernel kernel_for(int width, int lanes) {
   if (width == 4) {
     switch (lanes) {
-      case 8: return ppr_gather_kernel<float4, 8, kSegments>;
-      case 16: return ppr_gather_kernel<float4, 16, kSegments>;
-      case 32: return ppr_gather_kernel<float4, 32, kSegments>;
+      case 8: return ppr_gather_kernel<float4, 8, kSegments, kCoef>;
+      case 16: return ppr_gather_kernel<float4, 16, kSegments, kCoef>;
+      case 32: return ppr_gather_kernel<float4, 32, kSegments, kCoef>;
     }
   } else if (width == 1) {
     switch (lanes) {
-      case 8: return ppr_gather_kernel<float, 8, kSegments>;
-      case 16: return ppr_gather_kernel<float, 16, kSegments>;
-      case 32: return ppr_gather_kernel<float, 32, kSegments>;
+      case 8: return ppr_gather_kernel<float, 8, kSegments, kCoef>;
+      case 16: return ppr_gather_kernel<float, 16, kSegments, kCoef>;
+      case 32: return ppr_gather_kernel<float, 32, kSegments, kCoef>;
     }
   }
   return nullptr;
 }
 
-// One launch of either function: `width` floats a load (4 needs cols % 4
+// The three functions' kernels.
+enum class Mode { kGather, kSegments, kSegmentsCoef };
+
+// One launch of any function: `width` floats a load (4 needs cols % 4
 // == 0 and 16-byte-aligned bases), `lanes` lanes a destination, so a tile
 // is width * lanes columns.
-int launch(bool segments, const float* table, const int* src,
+int launch(Mode mode, const float* table, const int* src, const float* coef,
            const long long* ptr, float* out, int n_out, int cols, int width,
            int lanes, void* stream) {
-  const Kernel kernel = segments ? kernel_for<true>(width, lanes)
-                                 : kernel_for<false>(width, lanes);
+  const Kernel kernel =
+      mode == Mode::kSegmentsCoef ? kernel_for<true, true>(width, lanes)
+      : mode == Mode::kSegments   ? kernel_for<true, false>(width, lanes)
+                                  : kernel_for<false, false>(width, lanes);
   if (n_out <= 0 || cols <= 0 || kernel == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
@@ -314,7 +384,7 @@ int launch(bool segments, const float* table, const int* src,
       static_cast<unsigned>((groups + kWarpsPerBlock - 1) / kWarpsPerBlock),
       static_cast<unsigned>(tiles));
   kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      table, src, ptr, out, n_out, cols);
+      table, src, coef, ptr, out, n_out, cols);
   return (int)cudaGetLastError();
 }
 
@@ -328,15 +398,27 @@ extern "C" {
 int ppr_gather_segment_sum(const float* table, const int* src,
                            const long long* ptr, float* out, int n_out,
                            int cols, int width, int lanes, void* stream) {
-  return launch(true, table, src, ptr, out, n_out, cols, width, lanes, stream);
+  return launch(Mode::kSegments, table, src, nullptr, ptr, out, n_out, cols,
+                width, lanes, stream);
+}
+
+// K3's coefficient mode on `stream`: as ppr_gather_segment_sum, each row
+// times coef[e] (f32 [ptr[n_out]]).
+int ppr_gather_segment_sum_coef(const float* table, const int* src,
+                                const float* coef, const long long* ptr,
+                                float* out, int n_out, int cols, int width,
+                                int lanes, void* stream) {
+  if (coef == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(Mode::kSegmentsCoef, table, src, coef, ptr, out, n_out, cols,
+                width, lanes, stream);
 }
 
 // P1-P4 gather on `stream`: out [rows, cols] = table[idx[0..rows), :], in
 // the layout of `launch`. Returns cudaGetLastError() (0 on success).
 int ppr_row_gather(const float* table, const int* idx, float* out, int rows,
                    int cols, int width, int lanes, void* stream) {
-  return launch(false, table, idx, nullptr, out, rows, cols, width, lanes,
-                stream);
+  return launch(Mode::kGather, table, idx, nullptr, nullptr, out, rows, cols,
+                width, lanes, stream);
 }
 
 const char* ppr_cuda_error_string(int code) {

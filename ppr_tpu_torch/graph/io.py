@@ -1,10 +1,12 @@
 """Dataset loading — port of ``ppr_tpu/graph/io.py``.
 
-Neo4j-import CSV pairs, SNAP edge lists and seeded synthetic graphs, loaded
-straight into a :class:`~ppr_tpu_torch.graph.csr.Graph` on the chosen
-device (``device=None``: the card, an error when none is visible;
-``device="cpu"`` for the CPU). The generators are numpy, so a seed gives
-the same edges as the JAX package.
+Neo4j-import CSV pairs, SNAP edge lists (weighted or not) and seeded
+synthetic graphs (uniform or weighted), loaded straight into a
+:class:`~ppr_tpu_torch.graph.csr.Graph` on the chosen device
+(``device=None``: the card, an error when none is visible; ``device="cpu"``
+for the CPU). The generators are numpy, so a seed gives the same edges and
+weights as the JAX package. A Neo4j store directory is read by
+``graph/neostore.py``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from pathlib import Path
 
 import numpy as np
 
+from .. import native
 from .csr import Graph, build_graph
 
 # Default location of the reference GOT dataset (GOT_Nodes.csv and
@@ -97,25 +100,20 @@ def load_edge_list(
     weighted: bool = False,
     device=None,
 ) -> Dataset:
-    """Load a whitespace-separated ``src dst`` edge list (SNAP style); ids
-    are densely remapped in first-appearance order. The parse is the JAX
-    package's pure-Python path (its native C++ reader is not ported);
-    ``weighted=True`` raises, as weighted graphs are not ported yet."""
-    if weighted:
-        raise NotImplementedError(
-            "weighted graphs are not ported yet (ROADMAP.md, queue 1, slice B)"
-        )
-    src_l, dst_l = [], []
-    with open(path, encoding="utf-8") as f:
-        for line in f:
-            line = line.strip()
-            if not line or line.startswith(comment):
-                continue
-            parts = line.split()
-            src_l.append(int(parts[0]))
-            dst_l.append(int(parts[1]))
-    raw_src = np.asarray(src_l, np.int64)
-    raw_dst = np.asarray(dst_l, np.int64)
+    """Load a whitespace-separated ``src dst [weight]`` edge list (SNAP
+    style); ids are densely remapped in first-appearance order. An
+    unweighted file is parsed by the native C++ reader where it is
+    available (``ppr_tpu_torch/native``), else in Python; ``weighted=True``
+    reads a third column of positive edge weights (1.0 where a line has
+    none), in Python, as the JAX package does."""
+    weights = None
+    cap = max(os.path.getsize(path) // 3 + 16, 1024)
+    parsed = None if weighted else native.parse_edge_list_native(path, cap)
+    if parsed is not None:
+        raw_src, raw_dst = parsed
+    else:
+        raw_src, raw_dst, weights = parse_edge_list_python(
+            path, comment=comment, weighted=weighted)
 
     # dense remap in first-appearance order over the interleaved endpoints
     stacked = np.empty(raw_src.size * 2, np.int64)
@@ -127,12 +125,31 @@ def load_edge_list(
     lookup[uniq_in_order] = np.arange(uniq_in_order.size)
 
     graph = build_graph(lookup[raw_src], lookup[raw_dst],
-                        n=uniq_in_order.size,
+                        n=uniq_in_order.size, weights=weights,
                         dense_threshold=dense_threshold, device=device)
     if name is None:
         name = os.path.splitext(os.path.basename(path))[0]
     names = [str(int(orig)) for orig in uniq_in_order]
     return Dataset(graph=graph, names=names, name=name)
+
+
+def parse_edge_list_python(path: str, *, comment: str = "#",
+                           weighted: bool = False):
+    """``(src, dst, weights)`` of an edge-list file parsed in Python, the
+    path without a compiler (``weights`` ``None`` unless ``weighted``)."""
+    src_l, dst_l, w_l = [], [], []
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith(comment):
+                continue
+            parts = line.split()
+            src_l.append(int(parts[0]))
+            dst_l.append(int(parts[1]))
+            if weighted:
+                w_l.append(float(parts[2]) if len(parts) > 2 else 1.0)
+    weights = np.asarray(w_l, np.float64) if weighted else None
+    return np.asarray(src_l, np.int64), np.asarray(dst_l, np.int64), weights
 
 
 def load_got(got_dir: str = REFERENCE_GOT_DIR, **kwargs) -> Dataset:
@@ -182,6 +199,28 @@ def synthetic_powerlaw(
         names=[str(i) for i in range(n)],
         name=name or f"synth_{n}_{seed}",
     )
+
+
+def synthetic_weighted(n: int, avg_deg: int = 8, *, seed: int = 0,
+                       name: str | None = None,
+                       dense_threshold: int = 4096,
+                       device=None) -> Dataset:
+    """Seeded weighted graph: :func:`synthetic_powerlaw`'s edges with
+    log-normal weights. The generator is seeded, then the base graph is
+    built, then one weight is drawn for each edge in its source-sorted
+    order, as ``ppr_tpu.graph.io.synthetic_weighted`` does, so one seed
+    gives both packages the same weighted graph."""
+    rng = np.random.default_rng(seed)
+    base = synthetic_powerlaw(n, avg_deg, seed=seed, dense_threshold=0,
+                              device="cpu")
+    g = base.graph
+    src = g.edge_src[: g.m].numpy().astype(np.int64)
+    dst = g.edge_dst[: g.m].numpy().astype(np.int64)
+    w = rng.lognormal(0.0, 1.0, size=g.m)
+    graph = build_graph(src, dst, n=n, weights=w,
+                        dense_threshold=dense_threshold, device=device)
+    return Dataset(graph=graph, names=base.names,
+                   name=name or f"wsynth_{n}_{seed}")
 
 
 def load_default(prefer_got: bool = True, **kwargs) -> Dataset:

@@ -52,6 +52,8 @@ SIGNATURES = {
     "row_gather": {
         "ppr_gather_segment_sum": (
             _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _VP),
+        "ppr_gather_segment_sum_coef": (
+            _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _VP),
         "ppr_row_gather": (_VP, _VP, _VP, _CI, _CI, _CI, _CI, _VP),
     },
 }

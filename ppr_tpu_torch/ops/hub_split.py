@@ -18,8 +18,15 @@ CPU the matrix stays f32 (edge multiplicities are small integers, exact in
 both types), the operand is rounded through bf16, and the product runs in
 f32 — the same arithmetic.
 
-``auto_num_hubs`` is not ported: its constants were measured on a TPU v5e.
+A weighted graph has no hub split: the hub matrix holds edge
+multiplicities scaled by ``1/d_v``, and :func:`build_hub_split` refuses
+one, as the JAX package does. ``auto_num_hubs`` is not ported: its
+constants were measured on a TPU v5e (ROADMAP.md, queue 1, item 4).
 Callers pass an explicit hub count.
+
+:func:`push_out_hybrid_t` (node-major) is the propagation loops' push;
+:func:`push_out_hybrid` is its batch-major form, the JAX package's, which
+no path calls (ROADMAP.md, queue 1, item 22).
 """
 
 from __future__ import annotations
@@ -49,6 +56,8 @@ class HubSplit:
 def build_hub_split(g: Graph, num_hubs: int = 512,
                     dtype: torch.dtype = torch.float32) -> HubSplit:
     """Host-side construction from the destination-sorted edge view."""
+    if g.weighted:
+        raise NotImplementedError("hub split supports uniform graphs")
     if num_hubs == "auto":
         raise NotImplementedError(
             "auto_num_hubs runs on TPU v5e constants and is not ported; "
@@ -116,3 +125,10 @@ def push_out_hybrid_t(g: Graph, hs: HubSplit, a_t: torch.Tensor, *,
     out_t = gather_segment_sum(scaled_t, hs.tail_src, hs.tail_ptr,
                                num_chunks)
     return out_t.index_add_(0, hs.hub_ids, hub_vals_t)
+
+
+def push_out_hybrid(g: Graph, hs: HubSplit, a: torch.Tensor) -> torch.Tensor:
+    """``push_out`` by the hub split on a batch-major operand ``a [...,
+    n_pad]``: :func:`push_out_hybrid_t` on its node-major copy."""
+    a_t = a.reshape(-1, g.n_pad).T.contiguous()
+    return push_out_hybrid_t(g, hs, a_t).T.reshape(a.shape)

@@ -8,7 +8,12 @@ push, as one CUDA source (``csrc/row_gather.cu``).
   ``push_out``, ``push_out_t``, ``pull_out_norm`` and ``push_out_hybrid_t``
   through :func:`ppr_tpu_torch.ops.spmv.gather_segment_sum`. On the TPU that
   tail stayed XLA's gather plus ``segment_sum``: Mosaic could not gather
-  fast enough.
+  fast enough. With ``coef`` (f32, one an edge) it is the coefficient mode
+  of a weighted graph's push, ``out[d] = sum of coef[e] * table[src[e]]``,
+  each product rounded to f32 before it is added, as the plain version
+  (``index_select``, times ``coef``, ``segment_reduce``) rounds it; on the
+  TPU the weighted push was XLA's gather, multiply and ``segment_sum``
+  (``ppr_tpu/ops/spmv.py:66-67,110-112,236-237``).
 * :func:`row_gather` computes ``out[i] = table[idx[i]]``: the probes P1-P3
   (``scripts/probe_mosaic_gather.py``) and P4's ``gather`` mode. As those
   probes were on the TPU, it is a microbenchmark and on no serving or
@@ -47,8 +52,11 @@ import torch
 
 from . import cuda_build, probe
 
-#: K3 launches in this process (reset it to count a run's launches)
+#: K3 launches in this process (reset it to count a run's launches), both
+#: modes
 segment_sum_launches = 0
+#: of those, launches of the coefficient mode
+segment_sum_coef_launches = 0
 #: row_gather launches in this process
 gather_launches = 0
 
@@ -107,10 +115,15 @@ def make_plan(n_rows: int, cols: int, aligned: bool,
 
 
 def gather_segment_sum_ref(table: torch.Tensor, src: torch.Tensor,
-                           ptr: torch.Tensor) -> torch.Tensor:
-    """Plain K3: ``segment_reduce(table.index_select(0, src), ptr)``."""
-    return torch.segment_reduce(table.index_select(0, src), "sum",
-                                offsets=ptr, axis=0, unsafe=True)
+                           ptr: torch.Tensor,
+                           coef: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain K3: ``segment_reduce(table.index_select(0, src) [* coef[:,
+    None]], ptr)``."""
+    rows = table.index_select(0, src)
+    if coef is not None:
+        rows = rows * coef[:, None]
+    return torch.segment_reduce(rows, "sum", offsets=ptr, axis=0,
+                                unsafe=True)
 
 
 def row_gather_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -119,9 +132,11 @@ def row_gather_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(symbol: str, what: str, table: torch.Tensor,
-            index: torch.Tensor, ptr: torch.Tensor | None) -> torch.Tensor:
+            index: torch.Tensor, ptr: torch.Tensor | None,
+            coef: torch.Tensor | None = None) -> torch.Tensor:
     """Check the operands, allocate the output and launch ``symbol``: K3
-    with a row pointer, the unit-segment gather without."""
+    with a row pointer (and, in its coefficient mode, ``coef``), the
+    unit-segment gather without."""
     if not table.is_cuda:
         raise ValueError(f"unsupported device {table.device}")
     if table.dtype != torch.float32 or table.dim() != 2 \
@@ -132,6 +147,11 @@ def _launch(symbol: str, what: str, table: torch.Tensor,
             or not index.is_contiguous() or index.get_device() != card:
         raise ValueError(f"{what}: indices must be contiguous int32 [m] on "
                          f"{table.device}")
+    if coef is not None and (
+            coef.dtype != torch.float32 or coef.shape != index.shape
+            or not coef.is_contiguous() or coef.get_device() != card):
+        raise ValueError(f"{what}: coef must be contiguous f32 "
+                         f"[{index.shape[0]}] on {table.device}")
     n_rows, cols = table.shape
     if index.shape[0] >= 2**31:
         raise ValueError(f"{what}: {index.shape[0]} indices; the kernel "
@@ -158,7 +178,11 @@ def _launch(symbol: str, what: str, table: torch.Tensor,
     table_at, out_at = table.data_ptr(), out.data_ptr()
     plan = make_plan(n_rows, cols, (table_at | out_at) % 16 == 0)
     fn = cuda_build.function(symbol)
-    if ptr is not None:
+    if coef is not None:
+        rc = cuda_build.call(fn, card, table_at, index.data_ptr(),
+                             coef.data_ptr(), ptr.data_ptr(), out_at, n_out,
+                             cols, plan.width, plan.lanes)
+    elif ptr is not None:
         rc = cuda_build.call(fn, card, table_at, index.data_ptr(),
                              ptr.data_ptr(), out_at, n_out, cols, plan.width,
                              plan.lanes)
@@ -171,18 +195,26 @@ def _launch(symbol: str, what: str, table: torch.Tensor,
 
 
 def gather_segment_sum(table: torch.Tensor, src: torch.Tensor,
-                       ptr: torch.Tensor) -> torch.Tensor:
-    """K3: ``[ptr.shape[0] - 1, cols]`` segment sums of gathered rows."""
-    global segment_sum_launches
+                       ptr: torch.Tensor,
+                       coef: torch.Tensor | None = None) -> torch.Tensor:
+    """K3: ``[ptr.shape[0] - 1, cols]`` segment sums of gathered rows, each
+    row times ``coef[e]`` when ``coef`` is given (the coefficient mode)."""
+    global segment_sum_launches, segment_sum_coef_launches
     if table.device.type == "cpu":
-        return gather_segment_sum_ref(table, src, ptr)
+        return gather_segment_sum_ref(table, src, ptr, coef)
     if ptr is None:
         raise ValueError("gather_segment_sum: ptr must be contiguous int64 "
                          "[n_out + 1]")
-    out = _launch("ppr_gather_segment_sum", "gather_segment_sum", table, src,
-                  ptr)
+    if coef is None:
+        out = _launch("ppr_gather_segment_sum", "gather_segment_sum", table,
+                      src, ptr)
+    else:
+        out = _launch("ppr_gather_segment_sum_coef", "gather_segment_sum",
+                      table, src, ptr, coef)
     if out.numel():
         segment_sum_launches += 1
+        if coef is not None:
+            segment_sum_coef_launches += 1
     return out
 
 

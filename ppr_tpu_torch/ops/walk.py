@@ -27,8 +27,12 @@ stops on ``any(active)`` on the device; here the host reads that flag once
 every ``PHASE_STEPS`` steps (once a phase in :func:`weighted_walk_counts`).
 A step with no active walker changes nothing; it only draws numbers.
 
-Weighted graphs (the alias-table step of ``walk.py:60-63``) are not ported
-(ROADMAP.md, queue 1, item 20): the port's graphs cannot be weighted yet.
+On a weighted graph the move is Walker's alias method (``walk.py:60-63``):
+the uniform picks a CSR slot as above, and a second uniform ``u2``, drawn
+from the same generator at the same width right after ``u``, keeps the
+slot's own target with probability ``alias_prob[slot]`` or moves to the
+global slot ``alias_other[slot]``. Uniform graphs draw no ``u2``, so their
+walks are the draws they were.
 """
 
 from __future__ import annotations
@@ -50,9 +54,11 @@ def default_max_steps(alpha: float, tail: float = 1e-9) -> int:
 
 
 def _uniform_neighbor(g: Graph, cur: torch.Tensor, u: torch.Tensor,
-                      starts: torch.Tensor) -> torch.Tensor:
+                      starts: torch.Tensor,
+                      u2: torch.Tensor | None = None) -> torch.Tensor:
     """Next node of each walker: the out-neighbor that the uniform ``u``
-    picks, or the walker's start where ``cur`` is dangling."""
+    picks (on a weighted graph, through the alias tables with the second
+    uniform ``u2``), or the walker's start where ``cur`` is dangling."""
     deg = g.out_deg.index_select(0, cur)
     # floor(u * d) clamped to d-1 guards the u ~= 1.0 edge case; the cast
     # truncates toward zero, as the JAX package's astype(int32)
@@ -62,29 +68,34 @@ def _uniform_neighbor(g: Graph, cur: torch.Tensor, u: torch.Tensor,
     # multiple of 128: clamp so the gather stays in bounds (its value is
     # replaced by the start below)
     idx = (g.indptr.index_select(0, cur) + pick).clamp_max_(g.m_pad - 1)
+    if g.alias_prob is not None:
+        if u2 is None:
+            raise ValueError("weighted sampling needs a second uniform")
+        accept = u2 < g.alias_prob.index_select(0, idx)
+        idx = torch.where(accept, idx, g.alias_other.index_select(0, idx))
     nxt = g.indices.index_select(0, idx)
     return torch.where(deg > 0, nxt, starts)
 
 
-def _check_unweighted(g: Graph) -> None:
-    if getattr(g, "alias_prob", None) is not None:
-        raise NotImplementedError(
-            "walks on a weighted graph need the alias-table step, which is "
-            "not ported yet (ROADMAP.md, queue 1, item 20)")
+def _draws(g, width: int, generator, device):
+    """``(u, u2)``: a step's uniforms, ``u2`` only on a weighted graph."""
+    u = torch.rand(width, generator=generator, device=device)
+    u2 = (torch.rand(width, generator=generator, device=device)
+          if g.alias_prob is not None else None)
+    return u, u2
 
 
 def _first_hop(g, starts, generator):
-    u = torch.rand(starts.shape[0], generator=generator,
-                   device=starts.device)
-    return _uniform_neighbor(g, starts, u, starts)
+    u, u2 = _draws(g, starts.shape[0], generator, starts.device)
+    return _uniform_neighbor(g, starts, u, starts, u2)
 
 
 def _step(g, cur, active, starts, generator, alpha: float):
     """One lockstep step: ``(cur, active)`` after the stop test and move."""
-    u = torch.rand(cur.shape[0], generator=generator, device=cur.device)
+    u, u2 = _draws(g, cur.shape[0], generator, cur.device)
     go = active & (u >= alpha)
     u_move = (u - alpha) * (1.0 / (1.0 - alpha))
-    nxt = _uniform_neighbor(g, cur, u_move, starts)
+    nxt = _uniform_neighbor(g, cur, u_move, starts, u2)
     return torch.where(go, nxt, cur), go
 
 
@@ -93,7 +104,6 @@ def random_walks(g: Graph, starts: torch.Tensor,
                  no_zero_hop: bool = False,
                  max_steps: int | None = None) -> torch.Tensor:
     """Stop node of each walker, int32 ``[W]``, for int32 ``starts``."""
-    _check_unweighted(g)
     if max_steps is None:
         max_steps = default_max_steps(alpha)
     cur = _first_hop(g, starts, generator) if no_zero_hop else starts
@@ -143,7 +153,6 @@ def weighted_walk_counts(g: Graph, starts: torch.Tensor, rows: torch.Tensor,
     mass. On the card the adds are atomics, so the order of a node's
     deposits, and the last bits of its sum, vary from run to run.
     """
-    _check_unweighted(g)
     if max_steps is None:
         max_steps = default_max_steps(alpha)
     dev = starts.device

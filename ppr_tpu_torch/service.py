@@ -13,7 +13,9 @@ them to both. ``early_exit=True`` stops the annealed loop once every row's
 top-k set is certified final; ``cohort=True`` adds
 :meth:`PPRService.top_k_stream`, which hands back rows as they retire;
 ``precomputed=(threshold, k)`` answers every query from a BASE all-pair
-store made earlier.
+store made earlier. On a weighted graph ``hub_split`` raises
+``ValueError``, as in the JAX package: the hybrid push covers uniform
+``1/d`` edges only.
 
 Not ported yet, and raising ``NotImplementedError``: ``mesh`` (ROADMAP.md,
 queue 1, item 18).
@@ -109,6 +111,14 @@ class PPRService:
             if algorithm == AlgoType.FORA_TOPK else algorithm,
             dataset, k,
         )
+        if hub_split and dataset.graph.weighted:
+            # loud, as in the JAX package: the hybrid push has no weighted
+            # variant (ops/hub_split.py)
+            raise ValueError(
+                "hub_split= is unsupported on weighted graphs (the dense-hub "
+                "hybrid SpMV only covers uniform 1/d edge weights) — drop "
+                "hub_split or load the graph unweighted"
+            )
         algos = [a for a in (self._topk_algo, self._wg_algo)
                  if hasattr(a, "enable_hub_split")]
         if hub_split and algos:

@@ -22,8 +22,9 @@ Each variant is the kernel source built with one more ``-D`` flag into
 
 ``whole`` is also timed at other slab widths (tiles of 32, 64 and 128
 columns) at the benchmark's tail. ``--parent DIR`` names an unpacked
-tree of another commit (``git archive``) whose ``row_gather.cu`` has the
-earlier C interface ``(table, src, ptr, out, n_out, cols, stream)``: its
+tree of another commit (``git archive``) whose ``row_gather.cu`` has this
+C interface of ``ppr_gather_segment_sum`` (``(table, src, ptr, out,
+n_out, cols, width, lanes, stream)``, the layout's arguments): its
 kernel is timed beside ``whole`` in turns (parent, whole, whole, parent),
 and the host time of its wrappers is measured in a process of its own.
 
@@ -134,9 +135,12 @@ def finish_builds(procs: dict) -> dict[str, ctypes.CDLL]:
               sep="; ")
         lib = ctypes.CDLL(so)
         if name == "parent":
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.ppr_gather_segment_sum.argtypes = [vp, vp, vp, vp, ci, ci, vp]
-            lib.ppr_gather_segment_sum.restype = ci
+            # an older source may lack the later entries: type only the
+            # one timed here, whose interface it shares
+            fn = lib.ppr_gather_segment_sum
+            fn.argtypes = list(cuda_build.SIGNATURES["row_gather"][
+                "ppr_gather_segment_sum"])
+            fn.restype = ctypes.c_int
         else:
             cuda_build.bind(lib, "row_gather")
         libs[name] = lib
@@ -152,11 +156,9 @@ def launcher(name: str, lib, table, src, ptr, out, slab=None):
     from ppr_tpu_torch.ops import row_gather
 
     n_out, cols = out.shape
+    plan = row_gather.make_plan(table.shape[0], cols, True, slab)
     args = [table.data_ptr(), src.data_ptr(), ptr.data_ptr(), out.data_ptr(),
-            n_out, cols]
-    if name != "parent":
-        plan = row_gather.make_plan(table.shape[0], cols, True, slab)
-        args += [plan.width, plan.lanes]
+            n_out, cols, plan.width, plan.lanes]
 
     def launch():
         rc = lib.ppr_gather_segment_sum(

@@ -8,14 +8,16 @@ port's dependencies:
 Tolerances: K1, K2 and the hub product sum in another order than the plain
 versions (2e-5 after 100 or 300 rounds, the JAX package's kernel-vs-XLA
 bound; 1e-5 for one product); K3's segment sums run in edge order like the
-plain ``segment_reduce``, in f32, and are held to it bit for bit; K0 and
+plain ``segment_reduce``, in f32, and are held to it bit for bit, in the
+coefficient mode too (each product rounded before it is added); K0 and
 the row gather are exact. Forward Push and BASE rows on the card agree with the CPU's within
 1e-6, and with the same sweep count; the cohort ladder and the early exit
 stop on the CPU's sweeps, with the same id sets; the batch server's rows
 are the service's. The walks deposit with atomics, so they are held to
 conservation (1e-6 relative) and to their dangling rule, not to bits;
 ``expand_walkers`` is exact, and ``residual_propagate`` within 1e-5 of the
-CPU with the same sweep count."""
+CPU with the same sweep count. The ``coo`` backend adds with atomics: within
+1e-6 of the sorted one."""
 
 import threading
 
@@ -23,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from ppr_tpu_torch.graph.io import load_default, synthetic_powerlaw
+from ppr_tpu_torch.graph.io import (load_default, synthetic_powerlaw,
+                                    synthetic_weighted)
 from ppr_tpu_torch.harness import PerfHarness, TestType
 from ppr_tpu_torch.models.base_allpair import BaseAllPair
 from ppr_tpu_torch.models.config import AlgoType
@@ -35,7 +38,8 @@ from ppr_tpu_torch.models.neo4j_method import (Neo4jMethod,
 from ppr_tpu_torch.models.power_method import PowerMethod, power_method_batch
 from ppr_tpu_torch.ops import (cuda_build, dense_power, probe, row_gather,
                                spmv, walk)
-from ppr_tpu_torch.ops.hub_split import build_hub_split, push_out_hybrid_t
+from ppr_tpu_torch.ops.hub_split import (build_hub_split, push_out_hybrid,
+                                         push_out_hybrid_t)
 from ppr_tpu_torch.ops.push import forward_push_init
 from ppr_tpu_torch.ops.topk import topk_ids_with_ties_from_pairs
 from ppr_tpu_torch.service import PPRService
@@ -44,6 +48,10 @@ from ppr_tpu_torch.utils import calibrate
 
 pytestmark = pytest.mark.cuda
 ALPHA = 0.15
+#: K3 coefficient-mode widths: aligned and offset by a float, they take
+#: 4-byte loads at 8, 16 and 32 lanes and 16-byte loads at 8, 16 and 32
+#: lanes (tests/test_torch_row_gather.py checks that they do)
+COEF_COLS = [1, 3, 12, 16, 32, 50, 64, 68, 512, 2048, 2050]
 
 
 @pytest.fixture
@@ -401,6 +409,173 @@ def test_k3_and_row_gather_reject_bad_operands(cuda):
             row_gather.gather_segment_sum(table, src, bad_ptr)
 
 
+# --- K3's coefficient mode (weighted graphs) --------------------------------
+
+def weighted_operands(cuda, b, *, misalign=False):
+    """The weighted 2048-node graph on the card and a ``[n_pad, b]`` table
+    (offset by one float with ``misalign``)."""
+    g = synthetic_weighted(2048, 8, seed=3, dense_threshold=0,
+                           device=cuda).graph
+    values = torch.rand((g.n_pad, b), device=cuda)
+    if misalign:
+        flat = torch.empty(g.n_pad * b + 1, device=cuda)
+        values = flat[1:].view(g.n_pad, b).copy_(values)
+    return g, values
+
+
+@pytest.mark.parametrize("order", ["bydst", "bysrc"])
+@pytest.mark.parametrize("misalign", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("b", COEF_COLS)
+def test_k3_coef_matches_plain(cuda, b, misalign, order):
+    """The coefficient mode on a weighted graph's destination-sorted edges
+    (``push_out``, with ``edge_coef_bydst``) and source-sorted ones
+    (``pull_out_norm``, with ``edge_coef``), in both layouts and all three
+    lane counts (``COEF_COLS``): the plain version's bits, every run."""
+    g, table = weighted_operands(cuda, b, misalign=misalign)
+    src, ptr, coef = ((g.edge_src_bydst, g.bydst_ptr, g.edge_coef_bydst)
+                      if order == "bydst" else
+                      (g.edge_dst, g.bysrc_ptr, g.edge_coef))
+    before = (row_gather.segment_sum_launches,
+              row_gather.segment_sum_coef_launches)
+    got = row_gather.gather_segment_sum(table, src, ptr, coef=coef)
+    ref = row_gather.gather_segment_sum_ref(table, src, ptr, coef)
+    torch.cuda.synchronize()
+    assert (row_gather.segment_sum_launches,
+            row_gather.segment_sum_coef_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert torch.equal(got, ref)
+    assert torch.equal(got, row_gather.gather_segment_sum(table, src, ptr,
+                                                          coef=coef))
+    # the unweighted mode is another function
+    plain = row_gather.gather_segment_sum(table, src, ptr)
+    assert torch.equal(plain, row_gather.gather_segment_sum_ref(table, src,
+                                                                 ptr))
+    assert not torch.equal(plain, got)
+
+
+@pytest.mark.parametrize("slab", [None, 32, 64], ids=["whole", "32", "64"])
+@pytest.mark.parametrize("b", [12, 64, 256, 260])
+def test_k3_coef_ragged_segments_with_empty_ones(cuda, monkeypatch, b, slab):
+    """A segment of 1,000 edges between empty and short ones, coefficients
+    with zeros among them, walked whole and in slabs."""
+    if slab is not None:
+        plan = row_gather.make_plan
+        monkeypatch.setattr(row_gather, "make_plan",
+                            lambda n, c, a: plan(n, c, a, slab))
+    lengths = [0, 3, 0, 0, 1000, 0, 9, 8, 0, 17, 1, 0, 2]
+    ptr = torch.tensor(np.concatenate([[0], np.cumsum(lengths)]),
+                       device=cuda)
+    rng = np.random.default_rng(6)
+    m = int(ptr[-1])
+    src = torch.as_tensor(rng.integers(0, 300, m).astype(np.int32),
+                          device=cuda)
+    coef = rng.random(m, dtype=np.float32)
+    coef[::7] = 0.0
+    coef = torch.as_tensor(coef, device=cuda)
+    table = torch.randn((300, b), device=cuda)
+    got = row_gather.gather_segment_sum(table, src, ptr, coef=coef)
+    ref = row_gather.gather_segment_sum_ref(table, src, ptr, coef)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert not got[[0, 2, 3, 5, 8, 11]].any()
+
+
+def test_k3_coef_captures_in_a_cuda_graph(cuda):
+    g, table = weighted_operands(cuda, 64)
+    args = (g.edge_src_bydst, g.bydst_ptr)
+
+    def run():
+        return row_gather.gather_segment_sum(table, *args,
+                                             coef=g.edge_coef_bydst)
+
+    eager = run().clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    table.mul_(2.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, run())
+
+
+def test_k3_coef_rejects_bad_operands(cuda):
+    table = torch.rand((16, 8), device=cuda)
+    src = torch.zeros(4, dtype=torch.int32, device=cuda)
+    ptr = torch.tensor([0, 2, 4], device=cuda)
+    coef = torch.rand(4, device=cuda)
+    for bad in (coef.double(), coef.cpu(), coef[:3], coef.reshape(2, 2)):
+        with pytest.raises(ValueError, match="coef"):
+            row_gather.gather_segment_sum(table, src, ptr, coef=bad)
+
+
+def test_weighted_operators_launch_the_coefficient_mode(cuda):
+    """Every weighted sparse push reaches K3's coefficient mode on the card
+    and matches the CPU; the coo backend (scatter-add with atomics) within
+    1e-6 of the sorted one."""
+    graphs = [synthetic_weighted(2048, 8, seed=3, dense_threshold=0,
+                                 device=dev).graph for dev in ("cpu", cuda)]
+    a = np.random.default_rng(2).random((16, graphs[0].n_pad),
+                                        dtype=np.float32)
+    a[:, graphs[0].n:] = 0
+    outs = []
+    before = (row_gather.segment_sum_launches,
+              row_gather.segment_sum_coef_launches)
+    for g in graphs:
+        x = torch.from_numpy(a).to(g.device)
+        x_t = x.T.contiguous()
+        outs.append([op.cpu() for op in (
+            spmv.push_out(g, x), spmv.push_out_t(g, x_t),
+            spmv.push_out_chunked_t(g, x_t, num_chunks=3),
+            spmv.push_out_chunked(g, x, num_chunks=3),
+            spmv.pull_out_norm(g, x), spmv.pull_out_norm(g, x[0]))])
+    torch.cuda.synchronize()
+    assert row_gather.segment_sum_launches == before[0] + 6
+    assert row_gather.segment_sum_coef_launches == before[1] + 6
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    g = graphs[1]
+    x = torch.from_numpy(a).to(cuda)
+    for op in (spmv.push_out, spmv.pull_out_norm):
+        torch.testing.assert_close(op(g, x, backend="coo"),
+                                   op(g, x, backend="coo_sorted"),
+                                   atol=1e-6, rtol=1e-6)
+    with pytest.raises(NotImplementedError, match="uniform graphs"):
+        build_hub_split(g, 128)
+
+
+def test_weighted_walks_on_the_card(cuda):
+    """The alias step on the card: one step's neighbour frequencies from
+    the highest-degree node within 0.01 of the coefficients at 200,000
+    draws, and the walk counts conserve their mass."""
+    g = synthetic_weighted(2048, 8, seed=3, dense_threshold=0,
+                           device=cuda).graph
+    deg = g.out_deg[: g.n].cpu().numpy()
+    v = int(np.argmax(deg))
+    w = 200_000
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    u = torch.rand(w, generator=gen, device=cuda)
+    u2 = torch.rand(w, generator=gen, device=cuda)
+    cur = torch.full((w,), v, dtype=torch.int32, device=cuda)
+    nxt = walk._uniform_neighbor(g, cur, u, cur, u2).cpu().numpy()
+    lo, hi = int(g.indptr[v]), int(g.indptr[v + 1])
+    want = np.zeros(g.n_pad)
+    np.add.at(want, g.indices[lo:hi].cpu().numpy(),
+              g.edge_coef[lo:hi].cpu().numpy())
+    freq = np.bincount(nxt, minlength=g.n_pad) / w
+    np.testing.assert_allclose(freq, want, atol=0.01)
+    starts = torch.as_tensor(np.random.default_rng(0).integers(0, g.n, 1 << 16),
+                             dtype=torch.int32, device=cuda)
+    counts = walk.weighted_walk_counts(
+        g, starts, torch.zeros_like(starts, dtype=torch.int64),
+        torch.full((1 << 16,), 1.0 / (1 << 16), device=cuda), gen, ALPHA, 1)
+    assert abs(float(counts.sum()) - 1.0) <= 1e-6
+    assert not counts[:, g.n:].any()
+
+
 def test_fora_does_not_chunk_on_the_card(cuda):
     """The chunk count bounds the CPU's per-edge intermediate; K3 writes
     none, so FORA on the card pushes in one piece whatever the budget."""
@@ -426,10 +601,12 @@ def test_sparse_operators_launch_k3(cuda):
         outs.append([op.cpu() for op in (
             spmv.push_out(g, x), spmv.push_out_t(g, x_t),
             spmv.push_out_chunked_t(g, x_t, num_chunks=3),
+            spmv.push_out_chunked(g, x, num_chunks=3),
             push_out_hybrid_t(g, hs, x_t, num_chunks=2),
+            push_out_hybrid(g, hs, x),
             spmv.pull_out_norm(g, x), spmv.pull_out_norm(g, x[0]))])
     torch.cuda.synchronize()
-    assert row_gather.segment_sum_launches == before + 6
+    assert row_gather.segment_sum_launches == before + 8
     # the CPU's chunked sums and the hub product add in another order
     # (values up to ~10 at the hubs)
     for got, want in zip(outs[1], outs[0]):

@@ -95,11 +95,26 @@ def test_sentinel_is_padding(tiny):
 
 
 def test_weighted_graphs_not_ported():
-    with pytest.raises(NotImplementedError):
-        tcsr.build_graph([0], [1], 2, weights=np.ones(1))
+    """Weighted graphs, which raised until they were ported (ROADMAP.md,
+    queue 1, item 20): built from the same weights, and carried across
+    from JAX, they equal the JAX package's, coefficients and alias tables
+    included; a non-positive weight raises as there."""
+    jg = jcsr.build_graph([0, 0, 1], [1, 2, 2], n=3,
+                          weights=np.array([1.0, 3.0, 2.0]))
+    tg = tcsr.build_graph([0, 0, 1], [1, 2, 2], 3,
+                          weights=np.array([1.0, 3.0, 2.0]), device="cpu")
     jw = jio.synthetic_weighted(64, 4, seed=1)
-    with pytest.raises(NotImplementedError):
-        tcsr.graph_from_numpy(jax_fields(jw.graph), device="cpu")
+    carried = tcsr.graph_from_numpy(jax_fields(jw.graph), device="cpu")
+    for j, t in ((jg, tg), (jw.graph, carried)):
+        assert_same_graph(j, t)
+        assert t.weighted
+        for name in ("edge_coef", "edge_coef_bydst", "alias_prob",
+                     "alias_other"):
+            np.testing.assert_array_equal(getattr(t, name).numpy(),
+                                          np.asarray(getattr(j, name)))
+    np.testing.assert_allclose(tg.dense_out[0, :3].numpy(), [0, 0.25, 0.75])
+    with pytest.raises(ValueError, match="strictly positive"):
+        tcsr.build_graph([0], [1], 2, weights=np.zeros(1), device="cpu")
 
 
 def test_neo4j_csv_loader(tmp_path):
@@ -172,5 +187,12 @@ def test_edge_list_loader(tmp_path, dense_threshold):
     assert td.names == jd.names == ["100", "7", "90000", "3"]
     assert td.name == jd.name == "snap" and (td.n, td.graph.m) == (4, 7)
     assert_same_graph(jd.graph, td.graph)
-    with pytest.raises(NotImplementedError):
-        tio.load_edge_list(str(path), weighted=True)
+    # weighted=True, which raised until it was ported, reads a third
+    # column and weighs a line without one 1.0, as the JAX package does
+    jw = jio.load_edge_list(str(path), dense_threshold=dense_threshold,
+                            weighted=True)
+    tw = tio.load_edge_list(str(path), dense_threshold=dense_threshold,
+                            weighted=True, device="cpu")
+    assert_same_graph(jw.graph, tw.graph)
+    np.testing.assert_array_equal(tw.graph.edge_coef.numpy(),
+                                  np.asarray(jw.graph.edge_coef))

@@ -337,9 +337,19 @@ def test_load_dataset_matches_jax(tmp_path, spec):
 def test_load_dataset_rejects(tmp_path):
     with pytest.raises(SystemExit, match="dataset not found"):
         tcli.load_dataset(str(tmp_path / "missing"))
-    (tmp_path / "neostore.nodestore.db").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tcli.load_dataset(str(tmp_path))
+    # a Neo4j store, which raised until it was ported (ROADMAP.md, queue 1,
+    # item 15), loads as the JAX package loads it; an unknown --rel is
+    # rejected by both
+    from test_torch_neostore import write_store
+
+    db = str(tmp_path / "tiny.db")
+    write_store(db, [0, 1, 2, 6], [1, 2, 0, 3], [f"n{i}" for i in range(7)])
+    same_dataset(tcli.load_dataset(db, rel="Relation", device="cpu"),
+                 jcli.load_dataset(db, rel="Relation"))
+    for load, kwargs in ((tcli.load_dataset, {"device": "cpu"}),
+                         (jcli.load_dataset, {})):
+        with pytest.raises(ValueError, match="no relationship type"):
+            load(db, rel="NOPE", **kwargs)
 
 
 def test_cli_main(tmp_path, monkeypatch, capsys):

@@ -15,6 +15,8 @@ MODULES = [
     "ppr_tpu_torch.device",
     "ppr_tpu_torch.graph.csr",
     "ppr_tpu_torch.graph.io",
+    "ppr_tpu_torch.graph.neostore",
+    "ppr_tpu_torch.native",
     "ppr_tpu_torch.ops.spmv",
     "ppr_tpu_torch.ops.hub_split",
     "ppr_tpu_torch.ops.push",
@@ -89,3 +91,17 @@ def test_module_imported_without_jax(loaded, module):
     if not source.exists():
         source = path / "__init__.py"
     assert not _JAX_IMPORT.search(source.read_text())
+
+
+def test_store_writer_imports_without_jax():
+    """``chip_smoke.py`` writes its Neo4j store with
+    ``tests/test_torch_neostore.write_store``: importing that test module
+    loads no JAX (its JAX imports sit inside the tests)."""
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE, "tests.test_torch_neostore"],
+        cwd=root, capture_output=True, text=True, timeout=120, check=True,
+    )
+    loaded = set(json.loads(out.stdout.strip().splitlines()[-1]))
+    assert "tests.test_torch_neostore" in loaded
+    assert not sorted(m for m in loaded if _is_jax(m))

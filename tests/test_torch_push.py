@@ -80,8 +80,13 @@ def test_pull_out_norm_matches_jax(graphs, kind, shape):
     if other:
         sparse = tspmv.pull_out_norm(tg, torch.from_numpy(a), backend=other)
         np.testing.assert_allclose(sparse.numpy(), ref, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tspmv.pull_out_norm(tg, torch.from_numpy(a), backend="coo")
+    # the coo backend, which raised until it was ported (ROADMAP.md, queue
+    # 1, item 22), is the JAX package's scatter-add
+    coo = tspmv.pull_out_norm(tg, torch.from_numpy(a), backend="coo")
+    ref_coo = np.asarray(jspmv.pull_out_norm(jg, jnp.asarray(a),
+                                             backend="coo"))
+    np.testing.assert_allclose(coo.numpy(), ref_coo, atol=1e-6)
+    np.testing.assert_allclose(coo.numpy(), ref, atol=1e-6)
 
 
 def test_bysrc_ptr_delimits_sources(graphs):

@@ -87,10 +87,12 @@ def test_plan_slab_override():
     assert make_plan(BENCH_ROWS, 2050, True, 16) == Plan(1, 16)
 
 
-def walk_plan(table, src, ptr, plan):
-    """The kernel's walk in numpy. Every (destination, column) must be
-    written exactly once."""
+def walk_plan(table, src, ptr, plan, coef=None):
+    """The kernel's walk in numpy (each row times ``coef[e]``, rounded to
+    f32 before it is added, in the coefficient mode). Every (destination,
+    column) must be written exactly once."""
     table, src, ptr = table.numpy(), src.numpy(), ptr.numpy()
+    coef = None if coef is None else coef.numpy()
     n_out, cols = ptr.shape[0] - 1, table.shape[1]
     out = np.full((n_out, cols), np.nan, np.float32)
     written = np.zeros((n_out, cols), np.int32)
@@ -103,7 +105,8 @@ def walk_plan(table, src, ptr, plan):
                            min((group + 1) * per_warp, n_out)):
                 acc = np.zeros(c1 - c0, np.float32)
                 for e in range(ptr[d], ptr[d + 1]):
-                    acc += table[src[e], c0:c1]
+                    row = table[src[e], c0:c1]
+                    acc += row if coef is None else coef[e] * row
                 out[d, c0:c1] = acc
                 written[d, c0:c1] += 1
     assert (written == 1).all()
@@ -156,6 +159,38 @@ def test_walk_equals_plain_bit_for_bit(name, order, cols, aligned, slab):
     assert torch.equal(got, want)
     # on the CPU the wrapper is the plain version
     assert torch.equal(row_gather.gather_segment_sum(table, src, ptr), want)
+
+
+@pytest.mark.parametrize("order,cols,aligned,slab", [
+    ("bydst", 72, True, 32), ("bysrc", 70, True, None),
+    ("bydst", 12, False, None)])
+def test_coef_walk_equals_plain_bit_for_bit(order, cols, aligned, slab):
+    """The coefficient mode's walk on a weighted graph: ``push_out``'s
+    edges with ``edge_coef_bydst``, ``pull_out_norm``'s with
+    ``edge_coef``."""
+    from ppr_tpu_torch.graph.io import synthetic_weighted
+
+    graph = synthetic_weighted(1000, 8, seed=1, device="cpu").graph
+    src, ptr, coef = ((graph.edge_src_bydst, graph.bydst_ptr,
+                       graph.edge_coef_bydst) if order == "bydst" else
+                      (graph.edge_dst, graph.bysrc_ptr, graph.edge_coef))
+    table = torch.from_numpy(np.random.default_rng(cols).random(
+        (graph.n_pad, cols), dtype=np.float32))
+    plan = make_plan(graph.n_pad, cols, aligned, slab)
+    want = row_gather.gather_segment_sum_ref(table, src, ptr, coef)
+    assert torch.equal(walk_plan(table, src, ptr, plan, coef), want)
+    assert torch.equal(row_gather.gather_segment_sum(table, src, ptr,
+                                                     coef=coef), want)
+
+
+def test_coef_card_widths_cover_every_layout():
+    """The card tests' widths of the coefficient mode (aligned and offset
+    by a float) reach both load widths at 8, 16 and 32 lanes."""
+    from test_torch_cuda import COEF_COLS
+
+    layouts = {(p.width, p.lanes) for b in COEF_COLS for aligned in
+               (True, False) for p in [make_plan(2176, b, aligned)]}
+    assert layouts == {(w, lanes) for w in (1, 4) for lanes in (8, 16, 32)}
 
 
 def test_unit_segments_are_a_row_gather():

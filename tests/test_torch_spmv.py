@@ -1,8 +1,10 @@
-"""Parity of the port's push operators (dense, sorted segmented sum, hub
-split) with the JAX package's, on the CPU.
+"""Parity of the port's push operators (dense, sorted segmented sum, the
+coo scatter-add, the chunked pushes, hub split) with the JAX package's, on
+the CPU.
 
 Tolerances: f32 paths agree within float reassociation (atol 1e-6 on
-operands in [0, 1)); the hub split adds the hub rows in another order
+operands in [0, 1); the batch-major chunked push also rtol 1e-6, as its
+hub sums run to ~13); the hub split adds the hub rows in another order
 (atol 1e-5). bf16 hubs: the port's CPU path rounds the operand through bf16
 and multiplies in f32, as XLA does for JAX's bf16 dot with an f32 result."""
 
@@ -68,6 +70,55 @@ def test_push_out_matches_jax(graphs, backend, shape):
     ref = np.asarray(jspmv.push_out(jg, jnp.asarray(a), backend=backend))
     out = tspmv.push_out(tg, torch.from_numpy(a), backend=backend)
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(5,), (3, 5)], ids=["1d", "2d"])
+@pytest.mark.parametrize("kind", ["dense", "coo_sorted"])
+def test_push_out_coo_matches_jax(graphs, kind, shape):
+    """The ``coo`` backend (ROADMAP.md, queue 1, item 22): the JAX
+    package's scatter-add, as ``index_add_``."""
+    jg, tg = graphs[kind]
+    rng = np.random.default_rng(7)
+    a = np.zeros(shape[:-1] + (jg.n_pad,), np.float32)
+    a[..., : jg.n] = rng.random(shape[:-1] + (jg.n,), dtype=np.float32)
+    ref = np.asarray(jspmv.push_out(jg, jnp.asarray(a), backend="coo"))
+    out = tspmv.push_out(tg, torch.from_numpy(a), backend="coo")
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-6)
+    sorted_ = tspmv.push_out(tg, torch.from_numpy(a), backend="coo_sorted")
+    np.testing.assert_allclose(out.numpy(), sorted_.numpy(), atol=1e-6)
+    with pytest.raises(ValueError, match="unknown backend"):
+        tspmv.push_out(tg, torch.from_numpy(a), backend="csr")
+
+
+@pytest.mark.parametrize("shape", [(5,), (3, 5)], ids=["1d", "2d"])
+@pytest.mark.parametrize("num_chunks", [1, 4])
+def test_push_out_chunked_matches_jax(graphs, num_chunks, shape):
+    jg, tg = graphs["coo_sorted"]
+    rng = np.random.default_rng(8)
+    a = np.zeros(shape[:-1] + (jg.n_pad,), np.float32)
+    a[..., : jg.n] = rng.random(shape[:-1] + (jg.n,), dtype=np.float32)
+    ref = np.asarray(jspmv.push_out_chunked(jg, jnp.asarray(a),
+                                            num_chunks=num_chunks))
+    out = tspmv.push_out_chunked(tg, torch.from_numpy(a),
+                                 num_chunks=num_chunks)
+    assert out.shape == a.shape
+    # a hub's sum runs to ~13 over its chunks; the chunks add in another
+    # order than XLA's, so the bar is relative there too
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(5,), (3, 5)], ids=["1d", "2d"])
+def test_hybrid_batch_major_matches_jax(graphs, shape):
+    jg, tg = graphs["coo_sorted"]
+    rng = np.random.default_rng(9)
+    a = np.zeros(shape[:-1] + (jg.n_pad,), np.float32)
+    a[..., : jg.n] = rng.random(shape[:-1] + (jg.n,), dtype=np.float32)
+    ref = np.asarray(jhub.push_out_hybrid(jg, jhub.build_hub_split(jg, 128),
+                                          jnp.asarray(a)))
+    out = thub.push_out_hybrid(tg, thub.build_hub_split(tg, 128),
+                               torch.from_numpy(a))
+    assert out.shape == a.shape
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
 
 
 def test_push_out_chunked_t_matches(graphs):

@@ -228,13 +228,18 @@ def test_walk_determinism(got):
 
 
 def test_weighted_graph_raises():
-    """A graph with alias tables needs the weighted step (item 20); the
-    port's graphs carry none, so only a stand-in can reach the check."""
-    g = types.SimpleNamespace(alias_prob=torch.ones(4))
-    starts = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        twalk.random_walks(g, starts, gen(0), ALPHA)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        twalk.weighted_walk_counts(g, starts, starts, torch.ones(4), gen(0),
-                                   ALPHA, 1)
+    """A weighted graph's walks take the alias step (item 20, which raised
+    until it was ported): they draw a second uniform a step, so a move
+    without one raises; the walks themselves run."""
+    from ppr_tpu_torch.graph.io import synthetic_weighted
 
+    g = synthetic_weighted(200, 4, seed=1, device="cpu").graph
+    starts = torch.arange(64, dtype=torch.int32) % g.n
+    with pytest.raises(ValueError, match="second uniform"):
+        twalk._uniform_neighbor(g, starts, torch.rand(64), starts)
+    stops = twalk.random_walks(g, starts, gen(0), ALPHA)
+    assert stops.shape == starts.shape and int(stops.max()) < g.n
+    counts = twalk.weighted_walk_counts(g, starts, torch.zeros_like(starts),
+                                        torch.full((64,), 1 / 64), gen(0),
+                                        ALPHA, 1)
+    assert abs(float(counts.sum()) - 1.0) < 1e-6
