@@ -126,15 +126,51 @@ script exits non-zero:
    ca-GrQc stand-in read by ``load_edge_list(weighted=True)``, each row
    held to ``WEIGHTED_JAX_ROWS``) and ``[neostore]`` (the CLI on a Neo4j
    store written by ``tests/test_torch_neostore.py``'s writer: Test 1
-   rows equal to ``--db synth:107x3@7``'s; ``--rel NOPE`` raises).
+   rows equal to ``--db synth:107x3@7``'s; ``--rel NOPE`` raises);
+13. the mesh engines (``ppr_tpu_torch/parallel/``) on this one card
+   through repeated-device meshes (``devices=[cuda] * S``: the
+   partitioned arithmetic, the ring and K3 on every shard run for real;
+   the times are not a scaling result), at the bench graph's full width,
+   B 2048: ``[mesh:ref]`` (the single-device ``ForaTopk`` with
+   ``push="none"`` and no hub split, the same f32 operator, which every
+   mesh engine is held to), ``[mesh:edge]`` (the edge engine at 1x1, bit
+   for bit the reference, and 2x2), ``[mesh:node]`` (the node engine at
+   1x4: the f32 ring, the per-shard state shape, the bf16 ring and
+   frontier compaction at 64 of 64 blocks, bit for bit the dense ring, and
+   at 16 of 64, each held to the dense ring within the bars of
+   ``tests/test_ring_bf16.py`` and ``tests/test_frontier_ring.py``): sweeps
+   beside the reference's, ms a sweep, qps, peak memory, the rows whose
+   top-10 differ from the reference's and precision@10 against the
+   oracle, and a ``torch.profiler`` trace of one batch of the edge 2x2
+   and the node 1x4 engines (``[mesh:profile ...]``, as ``[profile]``);
+   ``[mesh:whole-graph]`` (node 1x4, B 64, ``spmv`` row mass
+   within eps/n, every score within eps/n of the oracle and each row's L1
+   distance within 2 eps/n, ``walks`` mass
+   within 1e-3, ``[fora:walks]``'s mean max-err bar and each row's L1
+   error below the mass the walks carry), ``[mesh:weighted]`` (the edge
+   engine 2x2 on the weighted bench graph, K3's coefficient mode),
+   ``[serving:mesh]`` (``PPRBatchServer`` over ``PPRService(mesh=1x4,
+   mesh_engine="node")``, a burst of 512 requests, precision@10 of the
+   hit lists), ``[mesh:dryrun]`` (``dryrun_multichip(4, devices=[cuda] *
+   4)``) and ``[mesh:k3]`` (K3 against its plain version at an edge
+   chunk's, a ring block's and a weighted chunk's shapes). Each engine
+   held to the reference has tie-expanded top-10 sets equal to its; the
+   bf16 ring and frontier compaction at 16 of 64 blocks are held to the
+   dense ring within their bars instead. Each mesh engine call's K3
+   launches are held to its sweeps times one launch a non-empty edge
+   chunk or ring block.
 
 Launch counts are reset before the serving path (7) and read after it,
 and again before and after the serving layer (9), the protocol path (10),
-the walk path (11), the weighted path and the store path (12); a reset
-also forgets the probe, so each path runs K0 once before its first hand
-kernel. The weighted path must launch K3 only in its coefficient mode,
-and never its plain version. The last three lines are the
-kernels' JSON record (``launches`` summed over the six paths;
+the walk path (11), the weighted path and the store path (12) and the
+mesh path (13: reset after the single-device references, read before
+``[mesh:dryrun]``, and equal to the sum of the mesh engines' own counts);
+a reset also forgets the probe, so each path runs K0 once before its
+first hand kernel. The
+weighted path must launch K3 only in its coefficient mode, and never its
+plain version; the mesh path must launch K3 in both modes. The last three
+lines are the kernels' JSON record (``launches`` summed over the seven
+paths, K3's ``mesh`` entry with the mesh path's own;
 ``row_gather`` is a
 microbenchmark, as P1-P4 were on the TPU, so no path launches it; ``ms``,
 ``plain_ms``, ``library_ms``, ``bound_ms`` and ``bound_by`` at one shape
@@ -2355,6 +2391,399 @@ def neostore_path(dev) -> dict[str, int]:
     return counts
 
 
+def topk_rows_differ(vals, ids, ref_vals, ref_ids, tol=1e-6) -> tuple:
+    """Rows whose tie-expanded top-10 (values within ``tol`` of the 10th
+    tied) differ from the reference's: ``(beyond, boundary)``, where a
+    ``boundary`` row differs only by nodes whose reference value lies
+    within ``4 * tol`` of the reference's 10th value (a tie at the edge of
+    the window, which a different order of additions may tip), and a
+    ``beyond`` row by more."""
+    from ppr_tpu_torch.ops.topk import topk_ids_with_ties_from_pairs
+
+    beyond = boundary = 0
+    for i in range(len(ids)):
+        a = set(topk_ids_with_ties_from_pairs(vals[i], ids[i], K,
+                                              tol=tol).tolist())
+        b = set(topk_ids_with_ties_from_pairs(ref_vals[i], ref_ids[i], K,
+                                              tol=tol).tolist())
+        if a == b:
+            continue
+        ref = dict(zip(ref_ids[i].tolist(), ref_vals[i].tolist()))
+        pos = np.sort(ref_vals[i][ref_vals[i] > 0])[::-1]
+        kth = pos[K - 1] if len(pos) >= K else 0.0
+        if all(abs(ref.get(x, 0.0) - kth) <= 4 * tol for x in a ^ b):
+            boundary += 1
+        else:
+            beyond += 1
+    return beyond, boundary
+
+
+def mesh_path(dev, ds, wds, sources, oracle) -> tuple[dict, dict]:
+    """The mesh engines on one card through repeated-device meshes, at the
+    bench graph's full width (B 2048, k 10, eps 0.5): ``[mesh:edge]`` at
+    1x1 and 2x2, ``[mesh:node]`` at 1x4 (f32 ring, bf16 ring, frontier
+    compaction at full and at low capacity), ``[mesh:whole-graph]`` (node
+    1x4, B 64), ``[mesh:weighted]`` (edge 2x2 on the weighted bench graph,
+    K3's coefficient mode), ``[serving:mesh]`` (``PPRBatchServer`` over
+    ``PPRService(mesh=..., mesh_engine="node")``) and ``[mesh:dryrun]``.
+    Each engine is held to the single-device ``ForaTopk`` with
+    ``push="none"`` and no hub split (the same f32 operator), and to the
+    oracle. Returns the launch counts of the mesh engines' calls alone and
+    K3's checks at the mesh shards' shapes (``[mesh:k3]``, made after the
+    counts are read)."""
+    import torch
+
+    from ppr_tpu_torch.models.fora import ForaTopk
+    from ppr_tpu_torch.ops.topk import (topk_ids_with_ties,
+                                        topk_ids_with_ties_from_pairs)
+    from ppr_tpu_torch.parallel.dryrun import dryrun_multichip
+    from ppr_tpu_torch.parallel.mesh import make_mesh
+    from ppr_tpu_torch.parallel.node_sharded import gather_nodes, node_shards
+    from ppr_tpu_torch.parallel.node_sharded_fora import (
+        NodeShardedForaTopk, NodeShardedForaWholeGraph)
+    from ppr_tpu_torch.parallel.sharded import edge_chunks
+    from ppr_tpu_torch.parallel.sharded_fora import ShardedForaTopk
+    from ppr_tpu_torch.serving import PPRBatchServer
+    from ppr_tpu_torch.service import PPRService
+
+    def mesh(d, g):
+        return make_mesh(d * g, data=d, graph=g, devices=[dev] * (d * g))
+
+    n_acc = len(oracle)
+    tol = EPS / ds.n
+    b = len(sources)
+
+    def run(eng, calls=1, srcs=sources):
+        out = None
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = eng.compute_topk_ids_batch(srcs, K, EPS)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        sweeps = eng.last_iters
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        row = {"ms": dt * 1e3, "qps": len(srcs) / dt, "sweeps": sweeps,
+               "ms_per_sweep": dt * 1e3 / sweeps, "peak_gb": peak}
+        return out, row
+
+    # --- [mesh:ref]: the single-device references, before the window ----
+    single = ForaTopk(ds, ALPHA, K, seed=7, push="none")
+    check(single.hub_split is None, "[mesh] the reference has a hub split")
+    run(single)                                         # warm-up
+    (sv, si), ref = run(single)
+    prec_ref = precision(oracle, tie_tolerant_ids(sv, si, n_acc, tol))
+    print(f"[mesh:ref] single-device ForaTopk(push='none'), no hub split, "
+          f"B={b}: {ref['ms']:.1f} ms = {ref['qps']:.1f} qps, sweeps "
+          f"{ref['sweeps']} ({ref['ms_per_sweep']:.2f} ms/sweep), peak "
+          f"{ref['peak_gb']:.2f} GB, precision@10 {prec_ref:.4f}")
+    check(prec_ref >= 0.99, f"[mesh:ref] precision@10 {prec_ref} < 0.99")
+    rows = {"single": ref}
+    del single
+    wsingle = ForaTopk(wds, ALPHA, K, seed=7, push="none")
+    (wv, wi), wref = run(wsingle)
+    del wsingle
+
+    # The mesh path's launch window: from here to ``read_launches`` below
+    # only mesh engines run, each call through ``counted``, which holds its
+    # K3 launches to a floor of sweeps x K3 launches a sweep.
+    m14 = mesh(1, 4)
+    ring_blocks = sum(bl.src is not None
+                      for sh in node_shards(ds.graph, m14)[0]
+                      for bl in sh.blocks)
+
+    def chunk_count(g, m):
+        return sum(ch.src.numel() > 0 for row in edge_chunks(g, m)
+                   for ch in row)
+
+    tally = {"k3": 0, "k3_coef": 0}
+
+    def counted(tag, per_sweep, eng, fn, *args, calls=1):
+        """``fn(*args)``, with the K3 launches it made (both modes) added
+        to the window's tally and held to ``calls * eng.last_iters *
+        per_sweep``: one launch a non-empty edge chunk or ring block and
+        sweep."""
+        before = read_launches()
+        out = fn(*args)
+        after = read_launches()
+        got = {m: after[m] - before[m] for m in tally}
+        for m in tally:
+            tally[m] += got[m]
+        floor = calls * eng.last_iters * per_sweep
+        print(f"[{tag}] K3 launches {got['k3']} (coefficient mode "
+              f"{got['k3_coef']}), at least {floor} = {calls} call(s) x "
+              f"{eng.last_iters} sweeps x {per_sweep} a sweep")
+        check(got["k3"] >= floor, f"[{tag}] {got['k3']} K3 launches, fewer "
+              f"than {floor}")
+        return out
+
+    reset_launches()
+
+    def hold(tag, out, row, *, exact=False):
+        v, i = out
+        beyond, boundary = topk_rows_differ(v, i, sv, si)
+        prec = precision(oracle, tie_tolerant_ids(v, i, n_acc, tol))
+        row.update(precision=prec, rows_beyond=beyond,
+                   rows_boundary=boundary)
+        print(f"[{tag}] B={b}: {row['ms']:.1f} ms = {row['qps']:.1f} qps, "
+              f"sweeps {row['sweeps']} (single-device {ref['sweeps']}, "
+              f"difference {row['sweeps'] - ref['sweeps']}), "
+              f"{row['ms_per_sweep']:.2f} ms/sweep, peak {row['peak_gb']:.2f}"
+              f" GB; tie-expanded top-10 sets (tol 1e-6) differ from the "
+              f"single-device engine's on {beyond} rows beyond a boundary "
+              f"tie, {boundary} at one; precision@10 {prec:.4f}")
+        check(beyond + boundary == 0, f"[{tag}] {beyond + boundary} rows' "
+              "tie-expanded top-10 differ from the single-device engine's")
+        check(prec >= 0.99, f"[{tag}] precision@10 {prec} < 0.99")
+        if exact:
+            check(np.array_equal(v, sv), f"[{tag}] values differ from the "
+                  "single-device engine's")
+        return row
+
+    # --- [mesh:edge] ------------------------------------------------------
+    for shape, calls in (((1, 1), 1), ((2, 2), 2)):
+        eng = ShardedForaTopk(ds, ALPHA, K, mesh=mesh(*shape))
+        tag = f"mesh:edge {shape[0]}x{shape[1]}"
+        per = chunk_count(ds.graph, eng.mesh)
+        out, row = counted(tag, per, eng, run, eng, calls, calls=calls)
+        rows[f"edge{shape[0]}x{shape[1]}"] = hold(tag, out, row,
+                                                 exact=shape == (1, 1))
+        if shape == (1, 1):
+            print(f"[{tag}] values equal to the single-device engine's bit "
+                  "for bit")
+        check(row["sweeps"] == ref["sweeps"], f"[{tag}] sweeps "
+              f"{row['sweeps']} != {ref['sweeps']}")
+        if shape == (2, 2):
+            counted(tag, per, eng, profile_batch, eng, sources,
+                    "mesh:profile edge 2x2", "mesh_edge_trace.json")
+        del eng
+
+    # --- [mesh:node] ------------------------------------------------------
+    node = NodeShardedForaTopk(ds, ALPHA, K, mesh=m14)
+    out, row = counted("mesh:node 1x4 f32", ring_blocks, node, run, node, 2,
+                       calls=2)
+    rows["node1x4"] = hold("mesh:node 1x4 f32", out, row)
+    check(row["sweeps"] == ref["sweeps"], "[mesh:node] sweep count")
+    counted("mesh:node 1x4 f32", ring_blocks, node, profile_batch, node,
+            sources, "mesh:profile node 1x4", "mesh_node_trace.json")
+    src_pad, _ = node._pad_batch(sources)
+    _, _, p_local, _ = counted("mesh:node 1x4 f32", ring_blocks, node,
+                               node._run, src_pad, K, 4 * K, EPS * 0.5)
+    shapes = {tuple(x.shape) for r_ in p_local for x in r_}
+    want_shape = node.final_state_shard_shape(b)
+    print(f"[mesh:node] per-shard reserve {sorted(shapes)} (node-major "
+          f"[n_pad/4, B]), final_state_shard_shape {want_shape}; the whole "
+          f"state would be [{ds.graph.n_pad}, {b}]")
+    check(shapes == {want_shape}, "[mesh:node] state is not O(n/S)")
+    dense = gather_nodes(p_local).T.numpy()[:b]
+    del p_local
+    dv, di = (x.numpy() for x in torch.topk(torch.from_numpy(dense), 4 * K,
+                                            dim=1))
+
+    def within_bars(tag, out, row, rtol, atol):
+        """Hold a run to the dense f32 ring within ``rtol`` and ``atol``
+        (the bars of ``tests/test_ring_bf16.py`` and
+        ``tests/test_frontier_ring.py``): each row's top-10 values, and
+        its ids among the dense ring's top-10 with every node within the
+        bar of the 10th value counted as tied."""
+        v, i = out
+        worst = 0.0
+        for r_ in range(b):
+            want = dv[r_][:K]
+            sup = min(K, int((want > 0).sum()), int((v[r_] > 0).sum()))
+            bar = atol + rtol * float(want[sup - 1]) if sup else atol
+            ok = set(i[r_][:sup].tolist()) <= set(
+                topk_ids_with_ties_from_pairs(dv[r_], di[r_], K,
+                                              tol=bar).tolist())
+            err = np.abs(np.sort(v[r_][:sup])[::-1] - want[:sup])
+            check(ok and bool((err <= atol + rtol * want[:sup]).all()),
+                  f"[{tag}] row {r_} outside the bars of the dense ring")
+            worst = max(worst, float(err.max()) if sup else 0.0)
+        beyond, boundary = topk_rows_differ(v, i, sv, si)
+        prec = precision(oracle, tie_tolerant_ids(v, i, n_acc, tol))
+        row.update(precision=prec, max_err_vs_dense=worst,
+                   rows_beyond=beyond, rows_boundary=boundary)
+        print(f"[{tag}] B={b}: {row['ms']:.1f} ms = {row['qps']:.1f} qps, "
+              f"sweeps {row['sweeps']} (dense ring {rows['node1x4']['sweeps']}"
+              f"), {row['ms_per_sweep']:.2f} ms/sweep, peak "
+              f"{row['peak_gb']:.2f} GB; every row within rtol {rtol} atol "
+              f"{atol} of the dense ring (largest difference {worst:.3e}); "
+              f"top-10 sets at tol 1e-6 differ from the single-device "
+              f"engine's on {beyond} rows beyond a boundary tie, {boundary} "
+              f"at one; precision@10 {prec:.4f}")
+        check(prec >= 0.99, f"[{tag}] precision@10 {prec} < 0.99")
+        return row
+
+    for label, opts in (("bf16 ring", {"ring_dtype": "bf16"}),
+                        ("frontier 64/64", {"frontier_blocks": 64}),
+                        ("frontier 16/64", {"frontier_blocks": 16})):
+        eng = NodeShardedForaTopk(ds, ALPHA, K, mesh=m14, **opts)
+        tag = f"mesh:node 1x4 {label}"
+        out, row = counted(tag, ring_blocks, eng, run, eng)
+        if label == "frontier 64/64":
+            full = counted(tag, ring_blocks, eng, eng.compute_topk_batch,
+                           sources, K, EPS)
+            check(np.array_equal(full, dense), f"[{tag}] differs from the "
+                  "dense ring")
+            print(f"[{tag}] the reserve equals the dense ring's bit for bit")
+            rows["frontier_full"] = hold(tag, out, row)
+            del full
+        elif label == "bf16 ring":
+            rows["bf16"] = within_bars(tag, out, row, 5e-3, 5e-4)
+        else:
+            rows["frontier_low"] = within_bars(tag, out, row, 5e-2, 5e-3)
+        del eng
+    del dense
+
+    # --- [mesh:whole-graph] -----------------------------------------------
+    wg_rows = {}
+    for completion in ("spmv", "walks"):
+        eng = NodeShardedForaWholeGraph(ds, ALPHA, mesh=m14,
+                                        completion=completion, seed=3,
+                                        max_walkers_per_device=1 << 24)
+        tag = f"mesh:whole-graph {completion}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = counted(tag, ring_blocks, eng, eng.compute_whole_graph_batch,
+                      sources[:64], EPS)
+        dt = time.perf_counter() - t0
+        mass = out.astype(np.float64).sum(axis=1)
+        bar = EPS / ds.n if completion == "spmv" else 1e-3
+        diff = np.abs(out[:n_acc].astype(np.float64) - oracle[:n_acc])
+        err = float(diff.max())
+        mean_err = float(diff.max(axis=1).mean())
+        l1 = float(diff.sum(axis=1).max())
+        # the walks carry the residue the ring sweeps left, (1-alpha)^sweeps
+        # of each row; a deposit on the wrong nodes is off by twice that
+        walk_mass = (1.0 - ALPHA) ** eng.last_iters
+        print(f"[{tag}] node 1x4 B=64: {dt:.2f} s, ring sweeps "
+              f"{eng.last_iters}; row mass {mass.min():.7f}..{mass.max():.7f}"
+              f" (bar 1 +- {bar:.3e}); against the oracle over {n_acc} rows: "
+              f"max abs err {err:.3e}, mean of the rows' max {mean_err:.3e},"
+              f" largest row L1 {l1:.3e}")
+        check(bool((np.abs(mass - 1.0) <= bar).all()),
+              f"[{tag}] row mass off by more than {bar}")
+        if completion == "spmv":
+            # the ring stops with at most eps/n of a row's mass left as
+            # residue: no score is further than that from the oracle, and
+            # a row's L1 distance is that mass plus rounding (another eps/n)
+            check(err <= EPS / ds.n and l1 <= 2 * EPS / ds.n,
+                  f"[{tag}] max abs err {err}, row L1 {l1}: more than "
+                  "the residue left")
+        else:
+            # [fora:walks]'s bar for the single-device walk completion, and
+            # a row L1 below the mass the walks carry
+            check(mean_err < 0.03, f"[{tag}] mean max-err {mean_err}")
+            check(l1 < walk_mass, f"[{tag}] row L1 {l1} >= the walks' mass "
+                  f"{walk_mass}")
+        wg_rows[completion] = {"s": dt, "sweeps": eng.last_iters,
+                               "max_err": err, "mean_max_err": mean_err,
+                               "l1": l1}
+        del eng, out
+    rows["whole_graph"] = wg_rows
+
+    # --- [mesh:weighted] --------------------------------------------------
+    weng = ShardedForaTopk(wds, ALPHA, K, mesh=mesh(2, 2))
+    coef_before = tally["k3_coef"]
+    (v, i), row = counted("mesh:weighted", chunk_count(wds.graph, weng.mesh),
+                          weng, run, weng)
+    coef_launched = tally["k3_coef"] - coef_before
+    beyond, boundary = topk_rows_differ(v, i, wv, wi)
+    woracle = weighted_oracle(wds.graph, sources[:n_acc])
+    prec = precision(woracle, tie_tolerant_ids(v, i, n_acc, EPS / wds.n))
+    row.update(precision=prec, rows_beyond=beyond, rows_boundary=boundary,
+               k3_coef_launches=coef_launched, single=wref)
+    print(f"[mesh:weighted] edge 2x2 on synthetic_weighted(65536, 16, "
+          f"seed=42) B={b}: {row['ms']:.1f} ms = {row['qps']:.1f} qps, sweeps "
+          f"{row['sweeps']} (single-device {wref['sweeps']}), "
+          f"{row['ms_per_sweep']:.2f} ms/sweep, peak {row['peak_gb']:.2f} GB;"
+          f" K3 coefficient-mode launches {coef_launched}; tie-expanded "
+          f"top-10 sets (tol 1e-6) differ from the single-device engine's on "
+          f"{beyond} rows beyond a boundary tie, {boundary} at one; "
+          f"precision@10 {prec:.4f} against the float64 weighted oracle")
+    check(coef_launched >= row["sweeps"] * chunk_count(wds.graph, weng.mesh),
+          "[mesh:weighted] K3's coefficient mode did not carry the sweeps")
+    check(beyond + boundary == 0 and row["sweeps"] == wref["sweeps"],
+          "[mesh:weighted] differs from the single-device engine")
+    check(prec >= 0.99, f"[mesh:weighted] precision@10 {prec} < 0.99")
+    rows["weighted"] = row
+    del weng
+
+    # --- [serving:mesh] ---------------------------------------------------
+    svc = PPRService.from_dataset(ds, alpha=ALPHA, eps=EPS, k=K, seed=7,
+                                  mesh=m14, mesh_engine="node")
+    check(isinstance(svc._topk_algo, NodeShardedForaTopk),
+          "[serving:mesh] the service has no node engine")
+    burst = sources[:512]
+
+    def serve():
+        with PPRBatchServer(svc, max_batch=512) as server:
+            t0 = time.perf_counter()
+            served = serve_burst(server, burst)
+            return served, time.perf_counter() - t0, server.stats
+
+    served, dt, stats = counted("serving:mesh", ring_blocks, svc._topk_algo,
+                                serve)
+    out_deg = ds.graph.out_deg.cpu().numpy()
+    check(len(served) == len(burst) and all(
+        len(h) >= K or out_deg[s] == 0 for h, s in zip(served, burst)),
+        "[serving:mesh] short hit lists")
+    precs = []
+    for j in range(n_acc):
+        o = oracle[j]
+        gnd = topk_ids_with_ties(o, K)
+        got = np.array([h.node for h in served[j]], np.int64)
+        precs.append(min(int((o[got] >= o[gnd].min() - tol).sum()),
+                         len(gnd)) / len(gnd))
+    prec = float(np.mean(precs))
+    print(f"[serving:mesh] PPRBatchServer(max_batch=512) over "
+          f"PPRService(mesh=1x4 on {dev}, mesh_engine='node'): a burst of "
+          f"{len(burst)} requests in {dt:.2f} s ({len(burst) / dt:.1f} qps), "
+          f"{stats.dispatches} dispatches, every hit list full; "
+          f"precision@10 of the {n_acc} oracle sources {prec:.4f}")
+    check(prec >= 0.99, f"[serving:mesh] precision@10 {prec} < 0.99")
+    rows["serving"] = {"s": dt, "qps": len(burst) / dt,
+                       "dispatches": stats.dispatches, "precision": prec}
+    launches = read_launches()
+    print(f"[mesh] launches on the mesh path (mesh engines only): {launches}"
+          f"; the engines' own counts add to K3 {tally['k3']}, coefficient "
+          f"mode {tally['k3_coef']}")
+    check(launches["k3"] == tally["k3"]
+          and launches["k3_coef"] == tally["k3_coef"],
+          "[mesh] K3 launched outside the mesh engines' calls")
+    check(launches["k3"] > 0 and launches["k3_coef"] > 0,
+          "[mesh] K3 was not launched in both modes on the mesh path")
+    check(launches["k0"] == 1, "[mesh] K0 did not run once on the mesh path")
+    del svc, node
+
+    # --- [mesh:dryrun], after the window: it runs a single-device engine --
+    t0 = time.perf_counter()
+    before = read_launches()["k3"]
+    dry = dryrun_multichip(4, devices=[dev] * 4)
+    print(f"[mesh:dryrun] dryrun_multichip(4, devices=[{dev}] * 4) passed in "
+          f"{time.perf_counter() - t0:.2f} s ({read_launches()['k3'] - before}"
+          f" K3 launches, outside the mesh path's count): {dry}")
+
+    # --- [mesh:k3]: K3 against its plain version at the shards' shapes ----
+    ch = edge_chunks(ds.graph, mesh(2, 2))[0][0]
+    wch = edge_chunks(wds.graph, mesh(2, 2))[0][0]
+    ring = node_shards(ds.graph, m14)[0][0]
+    blk = max((bl for bl in ring.blocks if bl.src is not None),
+              key=lambda bl: bl.src.shape[0])
+    k3m = k3_cases(dev, [
+        {"label": "edge 2x2 chunk", "n_rows": ds.graph.n_pad, "src": ch.src,
+         "ptr": ch.ptr, "b": b // 2, "cold": True},
+        {"label": "node 1x4 ring block", "n_rows": ds.graph.n_pad // 4,
+         "src": blk.src, "ptr": blk.ptr, "b": b, "cold": True},
+        {"label": "weighted edge 2x2 chunk", "n_rows": wds.graph.n_pad,
+         "src": wch.src, "ptr": wch.ptr, "coef": wch.coef, "b": b // 2,
+         "cold": True},
+    ], tag="mesh:k3")
+    k3m["engines"] = rows
+    return launches, k3m
+
+
 def main() -> int:
     import torch
 
@@ -2590,13 +3019,16 @@ def main() -> int:
     k3c = weighted_k3_phase(dev, wds.graph, wgrqc)
     del wgrqc
     weighted = weighted_path(dev, wds, walk_rates[4])
+
+    # --- 13. the mesh engines on one card --------------------------------
+    mesh, k3_mesh = mesh_path(dev, ds, wds, sources, oracle)
     del wds
     store = neostore_path(dev)
     launches = {k: serving[k] + layer[k] + protocol[k] + walks[k]
-                + weighted[k] + store[k] for k in serving}
+                + weighted[k] + mesh[k] + store[k] for k in serving}
     print(f"[launches] serving path {serving}, serving layer {layer}, "
           f"protocol path {protocol}, walk path {walks}, weighted path "
-          f"{weighted}, store path {store}")
+          f"{weighted}, mesh path {mesh}, store path {store}")
     source = "ppr_tpu_torch/csrc/dense_power.cu"
     print(json.dumps({"kernels": [{
         "name": "dense_power_iterations",
@@ -2653,7 +3085,8 @@ def main() -> int:
         "launches": launches["k3"],
         "launches_coef": launches["k3_coef"],
         "launches_coef_weighted_path": weighted["k3_coef"],
-        "max_abs_err": max(k3["max_abs_err"], k3c["max_abs_err"]),
+        "max_abs_err": max(k3["max_abs_err"], k3c["max_abs_err"],
+                           k3_mesh["max_abs_err"]),
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"],
@@ -2669,6 +3102,11 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "host_us", "device_ms", "library_host_us",
             "library_device_ms", "shapes")},
+        "mesh": {"launches": mesh["k3"], "launches_coef": mesh["k3_coef"],
+                 **{key: k3_mesh[key] for key in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms",
+                     "bound_by", "library_ms", "host_us", "device_ms",
+                     "shapes", "engines")}},
     }, {
         "name": "row_gather",
         "route": "cuda",

@@ -18,8 +18,9 @@ Usage::
 All six algorithms run: Monte-Carlo, Forward Push, FORA whole-graph and
 top-k, BASE and the Neo4j method, with the power method as the oracle.
 ``--fora-completion`` picks FORA's residue completion (``auto``: the cost
-model). ``--mesh`` (ROADMAP.md, queue 1, item 18) raises
-``NotImplementedError``.
+model). ``--mesh`` raises ``NotImplementedError``: the protocol's mesh
+engines are ROADMAP.md's queue 1, item 18, the protocol engines (the
+serving engines are ported: ``python -m ppr_tpu_torch.serving --mesh``).
 """
 
 from __future__ import annotations
@@ -88,7 +89,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler chrome trace of the batch "
                         "test here")
     p.add_argument("--mesh", default=None, metavar="DxG",
-                   help="device mesh (not ported: raises)")
+                   help="device mesh for the protocol (not ported: "
+                        "raises)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the graph and the algorithms run (default "
                         "cuda: exits with an error when no card is "
@@ -146,8 +148,8 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.mesh:
         raise NotImplementedError(
-            "--mesh: the sharded engines are not ported yet (ROADMAP.md, "
-            "queue 1, item 18)"
+            "--mesh: the protocol's mesh engines are not ported yet "
+            "(ROADMAP.md, queue 1, item 18, the protocol engines)"
         )
     dataset = load_dataset(args.db, rel=args.rel, device=args.device)
     print(f"Loaded dataset '{dataset.name}': {dataset.graph.n} nodes, "

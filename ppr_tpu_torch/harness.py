@@ -18,8 +18,10 @@ queries are store reads even in Test 3, and its store is not deleted
 after a test. ``fora_completion`` goes to every algorithm with a
 ``completion`` (both FORA algorithms), as in the JAX harness: ``auto``
 lets FORA's cost model choose, ``spmv`` and ``walks`` force a completion.
-A device mesh raises ``NotImplementedError`` (ROADMAP.md, queue 1, item
-18).
+A device mesh raises ``NotImplementedError``: the protocol's mesh
+engines (``ppr_tpu/parallel/mesh_algos.py``) are ROADMAP.md's queue 1,
+item 18, the protocol engines; the serving engines are ported
+(``ppr_tpu_torch/parallel/``).
 
 Two timing modes: ``batched=True`` times all Q queries as one device batch
 (per-query time = batch time / Q); ``batched=False`` times each query
@@ -191,8 +193,8 @@ class PerfHarness:
                  fora_completion: str = "auto", mesh=None):
         if mesh is not None:
             raise NotImplementedError(
-                "the sharded engines are not ported yet (ROADMAP.md, queue 1, "
-                "item 18)"
+                "mesh: the protocol's mesh engines are not ported yet "
+                "(ROADMAP.md, queue 1, item 18, the protocol engines)"
             )
         if fora_completion not in ("auto", "spmv", "walks"):
             raise ValueError(f"unknown FORA completion {fora_completion!r}")

@@ -1,0 +1,134 @@
+"""The mesh dry run — port of the contract of
+``__graft_entry__.py::dryrun_multichip`` (its lines 73-167, and the
+fixed-schedule step of 189-195).
+
+:func:`dryrun_multichip` builds an ``n_devices`` mesh and runs every
+serving engine of :mod:`ppr_tpu_torch.parallel` on a small seeded graph,
+holding each to the single-device engine: a correctness run, not a
+compile check. ``devices=["cuda:0"] * 4`` runs it on one card, ``["cpu"]
+* 8`` on the CPU.
+
+The sharded BASE part of the JAX dry run (the all-pair engines and the
+protocol's mesh preprocessing) comes with those engines:
+:func:`dryrun_sharded_base` raises until then.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..graph.io import synthetic_powerlaw
+from ..models.fora import ForaTopk
+from ..ops.topk import topk_ids_with_ties
+from .mesh import make_mesh
+from .node_sharded import (gather_nodes, make_node_sharded_propagate_ring,
+                           make_node_sharded_walk_counts)
+from .node_sharded_fora import NodeShardedForaTopk, NodeShardedForaWholeGraph
+from .sharded import gather_columns, sharded_fora_step
+from .sharded_fora import ShardedForaTopk
+
+
+def dryrun_multichip(n_devices: int, devices=None) -> dict:
+    """Run the mesh engines on ``make_mesh(n_devices, devices=devices)``
+    and check them; raises ``AssertionError`` on a mismatch. Returns what
+    it measured (errors and sweep counts)."""
+    mesh = make_mesh(n_devices, devices=devices)
+    ds = synthetic_powerlaw(512, 4, seed=1, dense_threshold=0,
+                            device=mesh.controller)
+    k, eps = 10, 0.5
+    sources = np.arange(8, dtype=np.int32) * 13 % ds.graph.n
+    out = {"mesh": mesh.shape}
+
+    single = ForaTopk(ds, 0.15, k, seed=7, push="none")
+    dense_single = single.compute_topk_batch(sources, k, eps)
+
+    def same_as_single(dense, what):
+        np.testing.assert_allclose(dense, dense_single, atol=5e-6,
+                                   rtol=1e-4, err_msg=what)
+        for i in range(len(sources)):
+            got = set(topk_ids_with_ties(dense[i], k, tol=1e-6).tolist())
+            want = set(topk_ids_with_ties(dense_single[i], k,
+                                          tol=1e-6).tolist())
+            assert got == want, f"{what} row {i}: top-k != single-device"
+        return float(np.abs(dense - dense_single).max())
+
+    edge = ShardedForaTopk(ds, alpha=0.15, k=k, mesh=mesh)
+    out["edge_err"] = same_as_single(edge.compute_topk_batch(sources, k, eps),
+                                     "edge engine")
+    node = NodeShardedForaTopk(ds, alpha=0.15, k=k, mesh=mesh)
+    dense_node = node.compute_topk_batch(sources, k, eps)
+    out["node_err"] = same_as_single(dense_node, "node engine")
+    out["sweeps"] = {"single": single.last_iters, "edge": edge.last_iters,
+                     "node": node.last_iters}
+    assert edge.last_iters == node.last_iters == single.last_iters, \
+        out["sweeps"]
+
+    # frontier compaction at full capacity is the dense ring, bit for bit
+    frontier = NodeShardedForaTopk(ds, alpha=0.15, k=k, mesh=mesh,
+                                   frontier_blocks=16, num_blocks=16)
+    np.testing.assert_array_equal(
+        frontier.compute_topk_batch(sources, k, eps), dense_node)
+
+    # the reserve shards are O(n/S)
+    src_pad, _ = node._pad_batch(sources)
+    _, _, p_local, _ = node._run(src_pad, k, 4 * k, eps * 0.5)
+    want_shape = node.final_state_shard_shape(len(src_pad))
+    for row in p_local:
+        for part in row:
+            assert tuple(part.shape) == want_shape, (
+                f"node-sharded state not O(n/S): {tuple(part.shape)}")
+    out["state_shard"] = want_shape
+
+    # the walk completion of FORA whole-graph conserves mass
+    wg = NodeShardedForaWholeGraph(ds, alpha=0.15, mesh=mesh,
+                                   completion="walks", seed=2)
+    mass = wg.compute_whole_graph_batch(sources[:4], 2.0).sum(axis=1)
+    np.testing.assert_allclose(mass, 1.0, atol=1e-3)
+    out["walk_mass_err"] = float(np.abs(mass - 1.0).max())
+
+    # one ring run and its bf16 twin
+    rows = np.arange(mesh.data * 2, dtype=np.int32) * 13 % ds.graph.n
+    runs = {}
+    for dt in ("f32", "bf16"):
+        prepare, run = make_node_sharded_propagate_ring(mesh, ds.graph, 0.15,
+                                                        ring_dtype=dt)
+        p, r, onehot = prepare(rows)
+        p, _ = run(p, r, onehot, 8)
+        runs[dt] = gather_nodes(p).numpy()
+    assert np.isfinite(runs["f32"]).all()
+    np.testing.assert_allclose(runs["bf16"], runs["f32"], atol=3e-3)
+    out["bf16_err"] = float(np.abs(runs["bf16"] - runs["f32"]).max())
+
+    # one batch of walk counts over the rotating CSR slices
+    walk = make_node_sharded_walk_counts(mesh, ds.graph, 0.15)
+    starts = np.broadcast_to(rows[:, None], (len(rows), 64 * mesh.graph))
+    counts = gather_nodes(walk(starts, np.full(starts.shape, 1.0 / 64
+                                                / mesh.graph, np.float32),
+                               3)).numpy()
+    assert np.isfinite(counts).all()
+    np.testing.assert_allclose(counts.sum(axis=0), 1.0, atol=1e-5)
+
+    # the fixed-schedule edge-sharded step: push sweeps, then walks that
+    # spread the residue left (__graft_entry__.py:189-195)
+    step, example = sharded_fora_step(mesh, ds.graph, alpha=0.15,
+                                      num_sweeps=2)
+    p, _ = step(*example)
+    mass = gather_columns(p).sum(dim=0).numpy()
+    assert np.isfinite(mass).all()
+    np.testing.assert_allclose(mass, 1.0, atol=1e-5)
+    out["step_mass_err"] = float(np.abs(mass - 1.0).max())
+    for dev in mesh.unique_devices():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    return out
+
+
+def dryrun_sharded_base(n_devices: int, devices=None) -> None:
+    """The JAX dry run's sharded BASE part (``__graft_entry__.py:168`` on):
+    the all-pair engines and the protocol's mesh preprocessing are not
+    ported yet."""
+    raise NotImplementedError(
+        "the sharded BASE dry run needs the all-pair mesh engines and the "
+        "protocol's mesh engines (ROADMAP.md, queue 1, item 18, the "
+        "protocol engines)")

@@ -17,8 +17,12 @@ store made earlier. On a weighted graph ``hub_split`` raises
 ``ValueError``, as in the JAX package: the hybrid push covers uniform
 ``1/d`` edges only.
 
-Not ported yet, and raising ``NotImplementedError``: ``mesh`` (ROADMAP.md,
-queue 1, item 18).
+``mesh=`` (a :class:`~.parallel.mesh.Mesh`) serves top-k from a mesh
+engine: ``mesh_engine="edge"`` (:class:`~.parallel.sharded_fora.
+ShardedForaTopk`, the edges split over ``graph``, node state replicated)
+or ``"node"`` (:class:`~.parallel.node_sharded_fora.NodeShardedForaTopk`,
+O(n/S) state a shard, with ``frontier_blocks=C`` its frontier-compacted
+ring); :meth:`PPRService.whole_graph` stays on the dataset's device.
 """
 
 from __future__ import annotations
@@ -54,8 +58,10 @@ class PPRService:
         """``precomputed=(threshold, k)`` (or a bare threshold, ``k = -1``)
         serves every query from an existing BASE store, the reference's
         BASE query mode (Base_Whole_Graph.java:167-186): pure store reads.
-        ``mesh_engine`` and ``frontier_blocks`` are the JAX package's mesh
-        options, validated as there; a mesh itself is not ported."""
+        ``mesh`` runs the FORA top-k serving path on a mesh engine,
+        ``mesh_engine`` picks it ("edge" or "node"), and
+        ``frontier_blocks`` compacts the node engine's ring; all three are
+        validated as in the JAX package."""
         self.dataset = dataset
         self.eps = eps
         self.k = k
@@ -88,23 +94,38 @@ class PPRService:
                 "frontier_blocks requires mesh= and mesh_engine='node' "
                 "(the ring-exchange engine); drop it or switch engines"
             )
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: the sharded engines are not ported yet (ROADMAP.md, "
-                "queue 1, item 18)"
-            )
-        self._topk_algo = conf.new_algo_obj(algorithm, dataset, k)
+        if mesh is not None and algorithm == AlgoType.FORA_TOPK:
+            if mesh_engine == "node":
+                from .parallel.node_sharded_fora import NodeShardedForaTopk
+
+                self._topk_algo = NodeShardedForaTopk(
+                    dataset, alpha=alpha, k=k, mesh=mesh,
+                    frontier_blocks=frontier_blocks,
+                )
+            elif mesh_engine == "edge":
+                from .parallel.sharded_fora import ShardedForaTopk
+
+                self._topk_algo = ShardedForaTopk(dataset, alpha=alpha, k=k,
+                                                  mesh=mesh)
+            else:
+                raise ValueError(
+                    f"mesh_engine must be 'edge' or 'node', got "
+                    f"{mesh_engine!r}"
+                )
+        else:
+            self._topk_algo = conf.new_algo_obj(algorithm, dataset, k)
+        what = "the mesh engines" if mesh is not None else str(algorithm)
         if early_exit:
             if not hasattr(self._topk_algo, "early_exit"):
                 raise ValueError(
                     f"early_exit is only supported by the single-device "
-                    f"FORA top-k serving engine, not {algorithm}"
+                    f"FORA top-k serving engine, not {what}"
                 )
             self._topk_algo.early_exit = True
         if cohort and not hasattr(self._topk_algo, "compute_topk_ids_cohorts"):
             raise ValueError(
                 f"cohort streaming is only supported by the single-device "
-                f"FORA top-k serving engine, not {algorithm}"
+                f"FORA top-k serving engine, not {what}"
             )
         self._wg_algo = conf.new_algo_obj(
             AlgoType.FORA_WHOLE_GRAPH

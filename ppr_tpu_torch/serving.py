@@ -752,23 +752,30 @@ def main(argv=None) -> int:
                          "call, and the SLO policy starts with the full "
                          "width ladder ranked")
     ap.add_argument("--mesh", default=None, metavar="DATAxGRAPH",
-                    help="sharded engine on a device mesh (not ported: "
-                         "raises)")
+                    help="serve top-k from a mesh engine on a DATAxGRAPH "
+                         "grid (e.g. 2x2) of the visible cards, or of "
+                         "CPU devices with --device cpu")
     ap.add_argument("--mesh-engine", default="edge",
                     choices=["edge", "node"],
-                    help="mesh layout (with --mesh)")
+                    help="mesh layout: edge-sharded (node state "
+                         "replicated) or node-sharded O(n/S) ring")
     ap.add_argument("--frontier-blocks", type=int, default=None,
-                    help="node-sharded ring only (with --mesh)")
+                    help="node-sharded ring only: send just the C "
+                         "highest-mass column blocks a sweep (frontier "
+                         "compaction; exact)")
     ap.add_argument("--precomputed", default=None, metavar="THRESHOLD[,K]",
                     help="serve from an existing BASE all-pair store "
                          "(pure precomputed reads, no device work)")
     args = ap.parse_args(argv)
 
+    mesh = None
     if args.mesh:
-        raise NotImplementedError(
-            "--mesh: the sharded engines are not ported yet (ROADMAP.md, "
-            "queue 1, item 18)"
-        )
+        from .parallel.mesh import make_mesh, parse_mesh
+
+        d, g = parse_mesh(args.mesh)
+        mesh = make_mesh(d * g, data=d, graph=g,
+                         devices=["cpu"] * (d * g)
+                         if args.device == "cpu" else None)
     precomputed = None
     if args.precomputed:
         parts = args.precomputed.split(",")
@@ -777,7 +784,7 @@ def main(argv=None) -> int:
     ds = load_dataset(args.db, device=args.device)
     svc = PPRService.from_dataset(ds, alpha=args.alpha, eps=args.eps,
                                   k=args.k, hub_split=args.hub_split,
-                                  calibrate=args.calibrate,
+                                  calibrate=args.calibrate, mesh=mesh,
                                   precomputed=precomputed,
                                   early_exit=args.early_exit,
                                   cohort=args.cohort,

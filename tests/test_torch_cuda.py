@@ -832,3 +832,163 @@ def test_push_warmup_keeps_the_build_out_of_push_ns(cuda, tmp_path,
     build_s, _ = cuda_build.BUILD_INFO["row_gather"]
     assert build_s > 1.0                        # nvcc ran in this call
     assert algo.last_push_ns * len(sources) < 0.5 * build_s * 1e9
+
+
+# -- the mesh engines on one card (repeated-device meshes) -----------------
+
+def _mesh_graph(dev, weighted):
+    if weighted:
+        return synthetic_weighted(4096, 16, seed=5, dense_threshold=0,
+                                  device=dev)
+    return synthetic_powerlaw(4096, 16, seed=5, dense_threshold=0,
+                              device=dev)
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "coef"])
+@pytest.mark.parametrize("b", [3, 64, 512])
+def test_k3_over_an_edge_chunk_matches_plain(cuda, weighted, b):
+    """The edge engine's push, K3 over a chunk of the sorted edges with
+    the row pointer clamped to it, equals the plain version bit for bit
+    (its coefficient mode on a weighted graph)."""
+    from ppr_tpu_torch.parallel.mesh import make_mesh
+    from ppr_tpu_torch.parallel.sharded import edge_chunks
+
+    g = _mesh_graph(cuda, weighted).graph
+    rem = torch.rand((g.n_pad, b), device=cuda)
+    before = row_gather.segment_sum_launches
+    for ch in edge_chunks(g, make_mesh(4, data=1, graph=4,
+                                       devices=[cuda] * 4))[0]:
+        got = ch.push(rem)
+        table = rem if ch.coef is not None else rem * ch.inv_deg[:, None]
+        want = row_gather.gather_segment_sum_ref(
+            table.cpu(), ch.src.cpu(), ch.ptr.cpu(),
+            None if ch.coef is None else ch.coef.cpu())
+        assert torch.equal(got.cpu(), want)
+    assert row_gather.segment_sum_launches == before + 4
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "coef"])
+@pytest.mark.parametrize("b", [3, 64, 512])
+def test_k3_over_a_ring_block_matches_plain(cuda, weighted, b):
+    """Every ring block of the node engine (a shard's destinations, one
+    source range, the padding left out) through K3 equals the plain
+    version bit for bit."""
+    from ppr_tpu_torch.parallel.mesh import make_mesh
+    from ppr_tpu_torch.parallel.node_sharded import node_shards
+
+    g = _mesh_graph(cuda, weighted).graph
+    shards = node_shards(g, make_mesh(4, data=1, graph=4,
+                                      devices=[cuda] * 4))[0]
+    n_local = g.n_pad // 4
+    table = torch.rand((n_local, b), device=cuda)
+    for sh in shards:
+        for blk in sh.blocks:
+            if blk.src is None:
+                continue
+            want = row_gather.gather_segment_sum_ref(
+                table.cpu(), blk.src.cpu(), blk.ptr.cpu(),
+                None if blk.coef is None else blk.coef.cpu())
+            assert torch.equal(blk.push(table).cpu(), want)
+
+
+@pytest.mark.parametrize("engine,shape,opts", [
+    ("edge", (2, 2), {}), ("edge", (1, 1), {}), ("node", (1, 4), {}),
+    ("node", (2, 2), {"ring_dtype": "bf16"}),
+    ("node", (1, 4), {"frontier_blocks": 64}),
+    ("node", (1, 4), {"frontier_blocks": 8}),
+], ids=["edge2x2", "edge1x1", "node1x4", "node2x2-bf16", "node-full",
+        "node-low"])
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "coef"])
+def test_mesh_on_one_card_matches_cpu(cuda, engine, shape, opts, weighted):
+    """A mesh of one card repeated runs K3 on every shard and answers as
+    the same mesh of CPU devices: the same sweeps and tie-expanded top-10
+    sets, scores within 1e-6 (the card's column sums add in another
+    order). Frontier compaction below full capacity picks its blocks by
+    their residue sums, so a near-tie of two blocks may go the other way
+    on the card: that run is held to the bars of
+    ``tests/test_frontier_ring.py`` (rtol 5e-2, atol 5e-3, the card's
+    top-10 within the CPU's ties at that bar) and its sweeps to 10%."""
+    from ppr_tpu_torch.ops.topk import topk_ids_with_ties
+    from ppr_tpu_torch.parallel.mesh import make_mesh
+    from ppr_tpu_torch.parallel.node_sharded_fora import NodeShardedForaTopk
+    from ppr_tpu_torch.parallel.sharded_fora import ShardedForaTopk
+
+    cls = ShardedForaTopk if engine == "edge" else NodeShardedForaTopk
+    sources = np.random.default_rng(3).integers(0, 4096, 64)
+    outs = []
+    for dev in ("cpu", cuda):
+        ds = _mesh_graph(dev, weighted)
+        n = shape[0] * shape[1]
+        eng = cls(ds, ALPHA, 10, mesh=make_mesh(
+            n, data=shape[0], graph=shape[1], devices=[dev] * n), **opts)
+        before = (row_gather.segment_sum_launches,
+                  row_gather.segment_sum_coef_launches)
+        dense = eng.compute_topk_batch(sources, 10, 0.5)
+        outs.append((dense, eng.last_iters))
+    launched = row_gather.segment_sum_launches - before[0]
+    assert launched >= outs[1][1]
+    assert (row_gather.segment_sum_coef_launches - before[1]
+            == (launched if weighted else 0))
+    (cpu, cit), (card, git) = outs
+    if opts.get("frontier_blocks", 64) < 64:
+        assert abs(git - cit) <= 0.1 * cit
+        np.testing.assert_allclose(card, cpu, atol=5e-3, rtol=5e-2)
+        for i in range(len(sources)):
+            kth = np.sort(cpu[i])[-10]
+            assert set(topk_ids_with_ties(card[i], 10).tolist()) <= set(
+                topk_ids_with_ties(cpu[i], 10,
+                                   tol=5e-3 + 5e-2 * kth).tolist())
+        return
+    assert git == cit > 0
+    np.testing.assert_allclose(card, cpu, atol=1e-6, rtol=0)
+    for i in range(len(sources)):
+        assert set(topk_ids_with_ties(card[i], 10, tol=1e-6).tolist()) == \
+            set(topk_ids_with_ties(cpu[i], 10, tol=1e-6).tolist())
+
+
+def test_whole_graph_mesh_on_one_card(cuda):
+    """The whole-graph engine on one card repeated answers as the same
+    mesh of CPU devices: ``spmv`` within 1e-6 on the same ring sweeps;
+    ``walks`` (other random streams on the card) with row mass 1 within
+    1e-3, within 0.03 of the CPU's ``spmv`` rows and each row's L1
+    distance from them below the mass the walks carry. Every ring sweep
+    launches K3 once a non-empty block."""
+    from ppr_tpu_torch.parallel.mesh import make_mesh
+    from ppr_tpu_torch.parallel.node_sharded import node_shards
+    from ppr_tpu_torch.parallel.node_sharded_fora import (
+        NodeShardedForaWholeGraph)
+
+    sources = np.arange(0, 4096, 512)
+
+    def whole_graph(dev, completion):
+        ds = _mesh_graph(dev, False)
+        mesh = make_mesh(4, data=1, graph=4, devices=[dev] * 4)
+        eng = NodeShardedForaWholeGraph(ds, ALPHA, mesh=mesh,
+                                        completion=completion,
+                                        max_walkers_per_device=1 << 20)
+        before = row_gather.segment_sum_launches
+        out = eng.compute_whole_graph_batch(sources, 0.5)
+        blocks = sum(bl.src is not None
+                     for sh in node_shards(ds.graph, mesh)[0]
+                     for bl in sh.blocks)
+        return out, eng.last_iters, \
+            (row_gather.segment_sum_launches - before, blocks), ds.n
+
+    cpu, cpu_iters, _, n = whole_graph("cpu", "spmv")
+    card, iters, (launched, blocks), _ = whole_graph(cuda, "spmv")
+    assert iters == cpu_iters and launched >= iters * blocks > 0
+    np.testing.assert_allclose(card.sum(axis=1), 1.0, atol=0.5 / n)
+    np.testing.assert_allclose(card, cpu, atol=1e-6, rtol=0)
+    walks, iters, (launched, blocks), _ = whole_graph(cuda, "walks")
+    assert launched >= iters * blocks > 0
+    np.testing.assert_allclose(walks.sum(axis=1), 1.0, atol=1e-3)
+    diff = np.abs(walks.astype(np.float64) - cpu)
+    assert diff.max() < 0.03
+    assert diff.sum(axis=1).max() < (1.0 - ALPHA) ** iters
+
+
+def test_dryrun_on_one_card(cuda):
+    from ppr_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    out = dryrun_multichip(4, devices=[cuda] * 4)
+    assert out["edge_err"] <= 5e-6 and out["node_err"] <= 5e-6

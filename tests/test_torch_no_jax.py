@@ -47,6 +47,13 @@ MODULES = [
     "ppr_tpu_torch.serving",
     "ppr_tpu_torch.harness",
     "ppr_tpu_torch.cli",
+    "ppr_tpu_torch.parallel",
+    "ppr_tpu_torch.parallel.mesh",
+    "ppr_tpu_torch.parallel.sharded",
+    "ppr_tpu_torch.parallel.sharded_fora",
+    "ppr_tpu_torch.parallel.node_sharded",
+    "ppr_tpu_torch.parallel.node_sharded_fora",
+    "ppr_tpu_torch.parallel.dryrun",
     "chip_smoke",
     "dense_power_ablation",
     "row_gather_ablation",

@@ -94,16 +94,25 @@ def test_dense_fallback_on_tie_overflow(datasets):
 
 
 @pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(calibrate=True),
+    dict(mesh="2x2"), dict(calibrate=True),
 ])
 def test_unported_options_raise(datasets, option):
-    """A mesh still raises; ``calibrate``, which raised until FORA's cost
-    model was ported, measures the constants and gives both algorithms
-    the same ones."""
+    """Both options, which raised until they were ported, now run: a mesh
+    (item 18's serving engines) serves top-k from the edge engine, with
+    the single-device service's hits; ``calibrate`` measures the
+    constants and gives both algorithms the same ones."""
     _, tds = datasets["got"]
     if "mesh" in option:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            PPRService(tds, **option)
+        from ppr_tpu_torch.parallel.mesh import make_mesh
+        from ppr_tpu_torch.parallel.sharded_fora import ShardedForaTopk
+
+        mesh = make_mesh(4, data=2, graph=2, devices=["cpu"] * 4)
+        svc = PPRService(tds, mesh=mesh)
+        assert isinstance(svc._topk_algo, ShardedForaTopk)
+        single = PPRService(tds)
+        single._topk_algo.push = "none"
+        assert_same_hits(single.top_k(SOURCES), svc.top_k(SOURCES),
+                         tds.names)
         return
     svc = PPRService(tds, **option)
     consts = [(a.avg_rand_walk_time_ns, a.spmv_ns_per_edge,
@@ -115,11 +124,21 @@ def test_unported_options_raise(datasets, option):
 
 
 def test_unported_options_name_their_item(datasets):
+    """Items 18 (the serving half) and 11 are ported: the node engine
+    behind the service answers as the single-device engine does, and the
+    service answers with calibrated constants."""
     _, tds = datasets["small"]
-    with pytest.raises(NotImplementedError, match="item 18"):
-        PPRService(tds, mesh=object(), mesh_engine="node")
-    # calibrate (item 11) is ported: the service answers with either
-    # constants
+    from ppr_tpu_torch.parallel.mesh import make_mesh
+    from ppr_tpu_torch.parallel.node_sharded_fora import NodeShardedForaTopk
+
+    svc = PPRService(tds, mesh=make_mesh(4, data=1, graph=4,
+                                         devices=["cpu"] * 4),
+                     mesh_engine="node", frontier_blocks=64, k=3)
+    assert isinstance(svc._topk_algo, NodeShardedForaTopk)
+    single = PPRService(tds, k=3)
+    single._topk_algo.push = "none"
+    assert_same_hits(single.top_k([1, 2, 77]), svc.top_k([1, 2, 77]),
+                     tds.names, atol=5e-6)
     assert PPRService(tds, calibrate=True, k=3).top_k([1, 2])
 
 

@@ -622,13 +622,10 @@ def test_daemon_main_without_a_card_raises(monkeypatch):
 @pytest.mark.parametrize("flag,item", [(["--mesh", "2x2"], "item 18"),
                                        (["--calibrate"], "item 11")])
 def test_daemon_unported_flags_raise(flag, item, monkeypatch):
-    """``--mesh`` still raises (item 18); ``--calibrate``, which raised
-    until item 11 was ported, reaches the service."""
-    if item == "item 18":
-        with pytest.raises(NotImplementedError, match=item):
-            tserving.main(["--db", "synth:300x3@3", "--device", "cpu",
-                           *flag])
-        return
+    """Both flags raised until their item was ported, and now reach the
+    service: ``--mesh 2x2 --device cpu`` serves from the edge engine on a
+    2x2 mesh of CPU devices (item 18's serving engines), ``--calibrate``
+    measures the cost constants (item 11)."""
     seen = {}
 
     def fake_serve_loop(svc, *args, **kwargs):
@@ -640,4 +637,10 @@ def test_daemon_unported_flags_raise(flag, item, monkeypatch):
     assert tserving.main(["--db", "synth:300x3@3", "--device", "cpu",
                           *flag]) == 0
     algo = seen["svc"]._topk_algo
+    if item == "item 18":
+        assert type(algo).__name__ == "ShardedForaTopk"
+        assert algo.mesh.shape == {"data": 2, "graph": 2}
+        assert {str(d) for row in algo.mesh.devices for d in row} == {"cpu"}
+        assert seen["svc"].top_k([1, 2])
+        return
     assert (algo.avg_rand_walk_time_ns, algo.spmv_ns_per_edge) != (400.0, 4.0)
