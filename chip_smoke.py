@@ -127,7 +127,7 @@ script exits non-zero:
    held to ``WEIGHTED_JAX_ROWS``) and ``[neostore]`` (the CLI on a Neo4j
    store written by ``tests/test_torch_neostore.py``'s writer: Test 1
    rows equal to ``--db synth:107x3@7``'s; ``--rel NOPE`` raises);
-13. the mesh engines (``ppr_tpu_torch/parallel/``) on this one card
+13. the mesh serving engines (``ppr_tpu_torch/parallel/``) on this one card
    through repeated-device meshes (``devices=[cuda] * S``: the
    partitioned arithmetic, the ring and K3 on every shard run for real;
    the times are not a scaling result), at the bench graph's full width,
@@ -153,24 +153,54 @@ script exits non-zero:
    mesh_engine="node")``, a burst of 512 requests, precision@10 of the
    hit lists), ``[mesh:dryrun]`` (``dryrun_multichip(4, devices=[cuda] *
    4)``) and ``[mesh:k3]`` (K3 against its plain version at an edge
-   chunk's, a ring block's and a weighted chunk's shapes). Each engine
+   chunk's, a ring block's and a weighted chunk's shapes, and, by source,
+   at the all-pair engines' 2x2 chunk and largest 1x4 reverse ring
+   block). Each engine
    held to the reference has tie-expanded top-10 sets equal to its; the
    bf16 ring and frontier compaction at 16 of 64 blocks are held to the
    dense ring within their bars instead. Each mesh engine call's K3
    launches are held to its sweeps times one launch a non-empty edge
-   chunk or ring block.
+   chunk or ring block;
+14. the protocol on a mesh (``mesh_protocol_path``), on this card
+   repeated: ``[mesh:prep]`` (``parallel/mesh_algos.py``'s drop-ins on
+   the bench graph at 2x2: Forward Push at B 2048 and the got sweep's
+   smallest rmax and the Neo4j method at B 2048 for 40 iterations, each
+   within atol 5e-6, rtol 1e-4 of the single-device engine on the same
+   sources, Forward Push on its sweeps; FORA whole-graph at B 64 within
+   ``[mesh:whole-graph]``'s oracle bars; Monte-Carlo at B 64 at
+   ``[mc:bench]``'s eps, rows of mass 1 within 1e-3 and within 0.05 of
+   the oracle), ``[mesh:base]`` (``ShardedBackwardSearch`` 2x2 and
+   ``NodeShardedBackwardSearch`` 1x4 on a 512-target batch at 1e-3 against
+   ``BackwardSearch``, the same bar and sweeps; then the whole BASE
+   all-pair preprocessing of the bench graph on the node engine, three
+   stored rows read back against a direct single-device sweep),
+   ``[protocol:mesh]`` (the CLI with ``--mesh 1x1 --device cuda`` on
+   ``synth:grqc``, Forward Push and BASE, Tests 1-2, and the same tests
+   through ``PerfHarness(mesh=2x2)``, every row held to ``JAX_ROWS``),
+   then, outside its launch window, ``[mesh:scaling]`` (``scaling_sweep``
+   and ``engine_scaling_sweep`` at 1, 2 and 4 devices) and ``[mesh:comm]``
+   (``comm_model.main`` at the bench shapes: bytes a sweep, K3's ns an
+   edge, the psum's share of a sweep), both labelled as one card's
+   partition overhead with no link measured. Every K3 launch of its
+   window is made in a call ``HeldK3`` holds (each mesh engine's sweep
+   loop and the power-method oracle), and each such call's launches equal
+   its loop's sweeps times one launch a chunk or non-empty ring block;
+   each phase prints its wall.
 
 Launch counts are reset before the serving path (7) and read after it,
 and again before and after the serving layer (9), the protocol path (10),
 the walk path (11), the weighted path and the store path (12) and the
 mesh path (13: reset after the single-device references, read before
-``[mesh:dryrun]``, and equal to the sum of the mesh engines' own counts);
+``[mesh:dryrun]``, and equal to the sum of the mesh engines' own counts)
+and the mesh protocol path (14: after its single-device references,
+before ``[mesh:scaling]``);
 a reset also forgets the probe, so each path runs K0 once before its
 first hand kernel. The
 weighted path must launch K3 only in its coefficient mode, and never its
 plain version; the mesh path must launch K3 in both modes. The last three
-lines are the kernels' JSON record (``launches`` summed over the seven
-paths, K3's ``mesh`` entry with the mesh path's own;
+lines are the kernels' JSON record (``launches`` summed over the eight
+paths, K3's ``mesh`` and ``mesh_protocol`` entries with those paths'
+own;
 ``row_gather`` is a
 microbenchmark, as P1-P4 were on the TPU, so no path launches it; ``ms``,
 ``plain_ms``, ``library_ms``, ``bound_ms`` and ``bound_by`` at one shape
@@ -2441,7 +2471,8 @@ def mesh_path(dev, ds, wds, sources, oracle) -> tuple[dict, dict]:
     from ppr_tpu_torch.parallel.node_sharded import gather_nodes, node_shards
     from ppr_tpu_torch.parallel.node_sharded_fora import (
         NodeShardedForaTopk, NodeShardedForaWholeGraph)
-    from ppr_tpu_torch.parallel.sharded import edge_chunks
+    from ppr_tpu_torch.parallel.node_sharded_allpair import reverse_shards
+    from ppr_tpu_torch.parallel.sharded import edge_chunks, edge_chunks_bysrc
     from ppr_tpu_torch.parallel.sharded_fora import ShardedForaTopk
     from ppr_tpu_torch.serving import PPRBatchServer
     from ppr_tpu_torch.service import PPRService
@@ -2771,6 +2802,13 @@ def mesh_path(dev, ds, wds, sources, oracle) -> tuple[dict, dict]:
     ring = node_shards(ds.graph, m14)[0][0]
     blk = max((bl for bl in ring.blocks if bl.src is not None),
               key=lambda bl: bl.src.shape[0])
+    # the all-pair engines' shapes (the protocol path's BASE sweeps): K3 by
+    # source, on a 2x2 chunk of the source-sorted edges at T/data and on
+    # the largest 1x4 reverse ring block at T
+    rch = edge_chunks_bysrc(ds.graph, mesh(2, 2))[0][0]
+    rblk = max((bl for sh in reverse_shards(ds.graph, m14)[0]
+                for bl in sh.blocks if bl.src is not None),
+               key=lambda bl: bl.src.shape[0])
     k3m = k3_cases(dev, [
         {"label": "edge 2x2 chunk", "n_rows": ds.graph.n_pad, "src": ch.src,
          "ptr": ch.ptr, "b": b // 2, "cold": True},
@@ -2779,9 +2817,471 @@ def mesh_path(dev, ds, wds, sources, oracle) -> tuple[dict, dict]:
         {"label": "weighted edge 2x2 chunk", "n_rows": wds.graph.n_pad,
          "src": wch.src, "ptr": wch.ptr, "coef": wch.coef, "b": b // 2,
          "cold": True},
+        {"label": "by-source edge 2x2 chunk", "n_rows": ds.graph.n_pad,
+         "src": rch.src, "ptr": rch.ptr, "b": BASE_BATCH // 2,
+         "cold": True},
+        {"label": "reverse node 1x4 ring block",
+         "n_rows": ds.graph.n_pad // 4, "src": rblk.src, "ptr": rblk.ptr,
+         "b": BASE_BATCH, "cold": True},
     ], tag="mesh:k3")
     k3m["engines"] = rows
     return launches, k3m
+
+
+def loop_sweeps(used: int) -> int:
+    """Sweeps a push loop ran when its frontier was non-empty in the first
+    ``used``: the host reads the flag every ``CHECK_EVERY`` sweeps and
+    stops at the first read that finds it empty (the sweeps after the
+    last non-empty one are exact no-ops that still launch K3)."""
+    from ppr_tpu_torch.ops.push import CHECK_EVERY
+
+    return (used // CHECK_EVERY + 1) * CHECK_EVERY
+
+
+class HeldK3:
+    """A context in which each call of a mesh engine's sweep loop, and of
+    the sparse power method, reads the K3 launches it made and holds them
+    to what its sweeps need: a push or a reverse sweep loop
+    ``loop_sweeps(sweeps)``, propagation its sweeps rounded up to a host
+    read, the Neo4j method its iterations, each times one launch an edge
+    chunk or non-empty ring block; the power method one launch an
+    iteration on a sparse graph. ``got`` and ``want`` add up the held
+    calls, ``bad`` names each call whose counts differ; a call made inside
+    a held call is not held again."""
+
+    def __init__(self):
+        self.calls = self.got = self.want = 0
+        self.bad: list[str] = []
+        self._undo = []
+        self._depth = 0
+
+    def __enter__(self):
+        from ppr_tpu_torch.models import power_method
+        from ppr_tpu_torch.ops.push import CHECK_EVERY
+        from ppr_tpu_torch.parallel.mesh_algos import _EdgeShardedKernels
+        from ppr_tpu_torch.parallel.node_sharded_allpair import \
+            NodeShardedBackwardSearch
+        from ppr_tpu_torch.parallel.sharded_allpair import \
+            ShardedBackwardSearch
+
+        def chunks(parts):
+            return sum(len(row) for row in parts)
+
+        def blocks(shards):
+            return sum(bl.src is not None for row in shards for sh in row
+                       for bl in sh.blocks)
+
+        def power_iters(a, kw):
+            return int(a[3] if len(a) > 3 else kw.get("iterations", 100))
+
+        for owner, name, want in (
+                (_EdgeShardedKernels, "push", lambda a, kw, res:
+                 loop_sweeps(res[2]) * chunks(a[0].chunks)),
+                (_EdgeShardedKernels, "propagate", lambda a, kw, res:
+                 -(-res[2] // CHECK_EVERY) * CHECK_EVERY
+                 * chunks(a[0].chunks)),
+                (_EdgeShardedKernels, "power_iterations", lambda a, kw, res:
+                 int(a[3]) * chunks(a[0].chunks)),
+                (ShardedBackwardSearch, "whole_graph_device",
+                 lambda a, kw, res: loop_sweeps(a[0].last_sweeps)
+                 * chunks(a[0]._chunks)),
+                (NodeShardedBackwardSearch, "whole_graph_shards",
+                 lambda a, kw, res: loop_sweeps(a[0].last_sweeps)
+                 * blocks(a[0]._shards)),
+                (power_method, "power_method_batch", lambda a, kw, res:
+                 0 if a[0].has_dense else power_iters(a, kw))):
+            self._patch(owner, name, want)
+        return self
+
+    def _patch(self, owner, name, want):
+        orig = getattr(owner, name)
+
+        def held(*a, **kw):
+            if self._depth:
+                return orig(*a, **kw)
+            self._depth += 1
+            before = read_launches()["k3"]
+            try:
+                res = orig(*a, **kw)
+            finally:
+                self._depth -= 1
+            got, w = read_launches()["k3"] - before, want(a, kw, res)
+            self.calls += 1
+            self.got += got
+            self.want += w
+            if got != w:
+                self.bad.append(f"{owner.__name__}.{name}: {got} K3 "
+                                f"launches, want {w}")
+            return res
+
+        setattr(owner, name, held)
+        self._undo.append((owner, name, orig))
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+        self._undo.clear()
+
+    def mark(self) -> tuple[int, int, int]:
+        return self.calls, self.got, self.want
+
+    def hold(self, tag: str, mark: tuple[int, int, int]) -> int:
+        """Print and check the held calls since ``mark``; returns their K3
+        launches."""
+        calls, got, want = (x - y for x, y in zip(self.mark(), mark))
+        print(f"[{tag}] K3 launches {got} in {calls} held calls, equal to "
+              f"their sweeps x launches a sweep {want}: {got == want}")
+        check(got == want and calls > 0,
+              f"[{tag}] {got} K3 launches in {calls} calls, want {want}")
+        return got
+
+
+def on_card_within(got, want, atol=5e-6, rtol=1e-4) -> tuple[bool, float]:
+    """``(every |got - want| <= atol + rtol |want|, the largest |got -
+    want|)`` for two tensors on the card, compared there."""
+    diff = (got - want).abs()
+    ok = bool((diff <= atol + rtol * want.abs()).all())
+    return ok, float(diff.max())
+
+
+def mesh_protocol_path(dev, ds, sources, oracle) -> dict:
+    """The protocol on a mesh of this one card repeated, at the bench
+    graph's full width: ``[mesh:prep]`` (the drop-ins of
+    ``parallel/mesh_algos.py``, each held to the single-device engine on
+    the same sources or to the oracle), ``[mesh:base]`` (both all-pair
+    engines on a 512-target batch against ``BackwardSearch``, then the
+    whole BASE all-pair preprocessing of the bench graph on the
+    node-sharded engine, three stored rows read back against a direct
+    single-device sweep), ``[protocol:mesh]`` (the CLI with ``--mesh 1x1
+    --device cuda`` and ``PerfHarness(mesh=2x2)`` on the ca-GrQc stand-in,
+    rows held to ``JAX_ROWS``), then, after the launch window,
+    ``[mesh:scaling]`` and ``[mesh:comm]`` (one card: partition overhead,
+    no link measured). Every K3 launch of the window is made in a call
+    :class:`HeldK3` holds to its loop's sweeps times one launch a chunk or
+    non-empty ring block.
+    Returns the window's launch counts and what the path measured."""
+    import io
+
+    import torch
+
+    from ppr_tpu_torch import cli
+    from ppr_tpu_torch.harness import SWEEPS, PerfHarness
+    from ppr_tpu_torch.models.backward_search import BackwardSearch
+    from ppr_tpu_torch.models.config import AlgoType
+    from ppr_tpu_torch.models.forward_push import ForwardPush
+    from ppr_tpu_torch.models.neo4j_method import Neo4jMethod
+    from ppr_tpu_torch.ops.push import backward_push_sweeps
+    from ppr_tpu_torch.parallel import comm_model
+    from ppr_tpu_torch.parallel.mesh import make_mesh
+    from ppr_tpu_torch.parallel.mesh_algos import (MeshForaWholeGraph,
+                                                   MeshForwardPush,
+                                                   MeshMonteCarlo,
+                                                   MeshNeo4jMethod)
+    from ppr_tpu_torch.parallel.node_sharded_allpair import (
+        NodeShardedBackwardSearch, node_sharded_base_allpair)
+    from ppr_tpu_torch.parallel.scaling import (engine_scaling_sweep,
+                                                scaling_sweep)
+    from ppr_tpu_torch.parallel.sharded_allpair import ShardedBackwardSearch
+
+    def mesh(d, g):
+        return make_mesh(d * g, data=d, graph=g, devices=[dev] * (d * g))
+
+    g = ds.graph
+    m22, m14 = mesh(2, 2), mesh(1, 4)
+    b = len(sources)
+    n_acc = len(oracle)
+    rmax = min(SWEEPS["got"]["whole_graph"][AlgoType.FWDPUSH])
+    threshold, targets = 1e-3, np.arange(BASE_BATCH)
+    walls, out = {}, {}
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, \
+            torch.cuda.max_memory_allocated() / 1e9
+
+    # --- the single-device references, before the launch window ---------
+    t_phase = time.perf_counter()
+    fwp = ForwardPush(ds, ALPHA)
+    ref_fwp, ref_fwp_s, ref_fwp_gb = timed(fwp.compute_whole_graph_device,
+                                           sources, rmax)
+    ref_fwp_sweeps = fwp.last_sweeps
+    ref_neo, ref_neo_s, _ = timed(Neo4jMethod(ds, ALPHA)
+                                  .compute_whole_graph_device, sources, 40)
+    ref_bws = BackwardSearch(g, ALPHA, threshold)
+    ref_base, ref_base_s, _ = timed(ref_bws.whole_graph_device, targets)
+    onehot = torch.nn.functional.one_hot(
+        torch.as_tensor(targets, device=dev), g.n_pad).float()
+    _, _, ref_base_sweeps = backward_push_sweeps(
+        g, torch.zeros_like(onehot), onehot, threshold, ALPHA)
+    del onehot
+    # three rows of the all-pair store, computed directly: the column of
+    # each source in every target batch of a single-device sweep
+    probe = np.array([int(sources[0]), int(sources[1]), g.n - 1])
+    t0 = time.perf_counter()
+    cols = [ref_bws.whole_graph_device(np.arange(lo, min(lo + BASE_BATCH,
+                                                         g.n)))[:, probe]
+            for lo in range(0, g.n, BASE_BATCH)]
+    direct = torch.cat(cols).T.cpu().numpy()            # [3, n]
+    direct_s = time.perf_counter() - t0
+    print(f"[mesh:prep] single-device references on the bench graph: "
+          f"ForwardPush B={b} rmax {rmax:g} {ref_fwp_s * 1e3:.1f} ms, "
+          f"{ref_fwp_sweeps} sweeps, peak {ref_fwp_gb:.2f} GB; Neo4jMethod "
+          f"B={b} 40 iterations {ref_neo_s * 1e3:.1f} ms; BackwardSearch "
+          f"{BASE_BATCH} targets at {threshold:g} {ref_base_s * 1e3:.1f} ms, "
+          f"{ref_base_sweeps} sweeps; the direct sweep for 3 store rows "
+          f"{direct_s:.2f} s")
+    walls["references"] = time.perf_counter() - t_phase
+
+    # --- the launch window: only mesh engines and the protocol on a mesh -
+    # every K3 launch in it is made by a call ``HeldK3`` holds
+    reset_launches()
+    with HeldK3() as held:
+        # --- [mesh:prep] --------------------------------------------------
+        t_phase = time.perf_counter()
+        eng = MeshForwardPush(ds, ALPHA, mesh=m22)
+        mark = held.mark()
+        p, secs, gb = timed(eng.compute_whole_graph_device, sources, rmax)
+        ok, err = on_card_within(p[:b], ref_fwp)
+        print(f"[mesh:prep] MeshForwardPush 2x2 B={b} rmax {rmax:g}: "
+              f"{secs * 1e3:.1f} ms, sweeps {eng.last_sweeps} (single-device "
+              f"{ref_fwp_sweeps}), {secs * 1e3 / eng.last_sweeps:.2f} ms a "
+              f"sweep, peak {gb:.2f} GB; largest difference from the "
+              f"single-device engine {err:.3e} (bar atol 5e-6, rtol 1e-4)")
+        check(ok and eng.last_sweeps == ref_fwp_sweeps,
+              "[mesh:prep] MeshForwardPush differs from ForwardPush")
+        got = held.hold("mesh:prep fwdpush", mark)
+        out["fwdpush"] = {"ms": secs * 1e3, "sweeps": eng.last_sweeps,
+                          "peak_gb": gb, "max_err": err, "k3": got,
+                          "single_ms": ref_fwp_s * 1e3}
+        del p, eng, ref_fwp
+
+        eng = MeshNeo4jMethod(ds, ALPHA, mesh=m22)
+        mark = held.mark()
+        x, secs, gb = timed(eng.compute_whole_graph_device, sources, 40)
+        ok, err = on_card_within(x[:b], ref_neo)
+        print(f"[mesh:prep] MeshNeo4jMethod 2x2 B={b} 40 iterations: "
+              f"{secs * 1e3:.1f} ms ({ref_neo_s * 1e3:.1f} single-device), "
+              f"peak {gb:.2f} GB; largest difference {err:.3e}")
+        check(ok, "[mesh:prep] MeshNeo4jMethod differs from Neo4jMethod")
+        got = held.hold("mesh:prep neo4j", mark)
+        out["neo4j"] = {"ms": secs * 1e3, "sweeps": 40, "peak_gb": gb,
+                        "max_err": err, "k3": got,
+                        "single_ms": ref_neo_s * 1e3}
+        del x, eng, ref_neo
+
+        wsrc = sources[:64]
+        eng = MeshForaWholeGraph(ds, ALPHA, mesh=m22)
+        mark = held.mark()
+        wg, secs, gb = timed(eng.compute_whole_graph_batch, wsrc, EPS)
+        diff = np.abs(wg[:n_acc].astype(np.float64) - oracle)
+        err, l1 = float(diff.max()), float(diff.sum(axis=1).max())
+        mass = wg.astype(np.float64).sum(axis=1)
+        print(f"[mesh:prep] MeshForaWholeGraph 2x2 B=64 eps {EPS}: "
+              f"{secs * 1e3:.1f} ms (first call: its untimed warm-up push "
+              f"included), push rounds {eng.last_rounds}, propagation sweeps "
+              f"{eng.last_iters}, peak {gb:.2f} GB; against the oracle over "
+              f"{n_acc} rows: max abs err {err:.3e} (bar {EPS / ds.n:.3e}), "
+              f"largest row L1 {l1:.3e} (bar {2 * EPS / ds.n:.3e}); row mass "
+              f"{mass.min():.7f}..{mass.max():.7f}")
+        check(err <= EPS / ds.n and l1 <= 2 * EPS / ds.n
+              and bool((np.abs(mass - 1.0) <= EPS / ds.n).all()),
+              "[mesh:prep] MeshForaWholeGraph outside the oracle's bars")
+        got = held.hold("mesh:prep fora whole-graph", mark)
+        out["fora_whole_graph"] = {"ms": secs * 1e3, "rounds": eng.last_rounds,
+                                   "sweeps": eng.last_iters, "peak_gb": gb,
+                                   "max_err": err, "l1": l1, "k3": got}
+        del wg, eng
+
+        eng = MeshMonteCarlo(ds, ALPHA, mesh=m22, seed=3)
+        before = read_launches()["k3"]
+        mc, secs, gb = timed(eng.compute_whole_graph_batch, wsrc, EPS)
+        got = read_launches()["k3"] - before
+        mass = mc.astype(np.float64).sum(axis=1)
+        err = float(np.abs(mc[:n_acc] - oracle).max())
+        print(f"[mesh:prep] MeshMonteCarlo 2x2 B=64 eps {EPS} ([mc:bench]'s): "
+              f"{secs:.2f} s, peak {gb:.2f} GB; row mass {mass.min():.7f}.."
+              f"{mass.max():.7f} (bar 1 +- 1e-3); largest deviation from the "
+              f"oracle over {n_acc} rows {err:.3e} (bar 0.05); K3 launches "
+              f"{got} (walks only)")
+        check(bool((np.abs(mass - 1.0) <= 1e-3).all()) and err < 0.05
+              and got == 0, "[mesh:prep] MeshMonteCarlo outside its bars")
+        out["monte_carlo"] = {"s": secs, "peak_gb": gb, "max_err": err}
+        del mc, eng
+        walls["mesh:prep"] = time.perf_counter() - t_phase
+        print(f"[mesh:prep] wall {walls['mesh:prep']:.1f} s")
+
+        # --- [mesh:base] --------------------------------------------------
+        t_phase = time.perf_counter()
+        for label, cls, m in (("ShardedBackwardSearch 2x2",
+                               ShardedBackwardSearch, m22),
+                              ("NodeShardedBackwardSearch 1x4",
+                               NodeShardedBackwardSearch, m14)):
+            eng = cls(g, ALPHA, threshold, mesh=m)
+            mark = held.mark()
+            res, secs, gb = timed(eng.whole_graph_device, targets)
+            ok, err = on_card_within(res[:BASE_BATCH], ref_base)
+            print(f"[mesh:base] {label}, {BASE_BATCH} targets at "
+                  f"{threshold:g}: {secs * 1e3:.1f} ms "
+                  f"({ref_base_s * 1e3:.1f} single-device), sweeps "
+                  f"{eng.last_sweeps} (single-device "
+                  f"{ref_base_sweeps}), peak {gb:.2f} GB; largest difference "
+                  f"{err:.3e}")
+            check(ok and eng.last_sweeps == ref_base_sweeps,
+                  f"[mesh:base] {label} differs from BackwardSearch")
+            got = held.hold(f"mesh:base {label}", mark)
+            out[label.split()[0]] = {"ms": secs * 1e3,
+                                     "sweeps": eng.last_sweeps, "max_err": err,
+                                     "k3": got}
+            del res, eng
+        del ref_base
+
+        algo = node_sharded_base_allpair(ds, ALPHA, mesh=m14)
+        algo.prep_dirname = os.path.abspath(os.path.join(
+            PROTOCOL_DIR, "mesh_base", algo.prep_dirname))
+        shutil.rmtree(algo.prep_dirname, ignore_errors=True)
+        batches = -(-g.n // BASE_BATCH)
+        mark = held.mark()
+        _, secs, gb = timed(algo.preprocessing, threshold, -1)
+        calls = held.calls - mark[0]
+        worst, extra, bad = 0.0, 0, 0
+        for i, s in enumerate(probe):
+            ids, vals = algo._store.read_row_ordered(int(s))
+            row = np.zeros(g.n, np.float32)
+            row[ids] = vals
+            want = np.where(direct[i] >= np.float32(threshold), direct[i], 0.0)
+            both = (row > 0) & (want > 0)
+            gap = np.abs(row[both] - want[both])
+            worst = max(worst, float(gap.max()))
+            bad += int((gap > 5e-6 + 1e-4 * want[both]).sum())
+            # an entry on one side only must sit at the threshold
+            only = (row > 0) != (want > 0)
+            extra += int((np.abs(np.maximum(row, want)[only] - threshold)
+                          > 1e-6).sum())
+        print(f"[mesh:base] the whole BASE all-pair preprocessing of the "
+              f"bench graph on NodeShardedBackwardSearch 1x4: {g.n} targets "
+              f"in "
+              f"{batches} batches of {BASE_BATCH} at threshold {threshold:g}: "
+              f"{secs:.2f} s, store {algo.get_prep_size()} bytes, peak "
+              f"{gb:.2f} GB; rows {probe.tolist()} read back against a direct "
+              f"single-device sweep: largest difference {worst:.3e} ({bad} "
+              f"outside atol 5e-6, rtol 1e-4), entries on one side only away "
+              f"from the threshold {extra}")
+        check(bad == 0 and extra == 0,
+              "[mesh:base] stored rows differ from the direct sweep")
+        got = held.hold("mesh:base all-pair", mark)
+        check(calls == batches,
+              f"[mesh:base] {calls} reverse sweeps held, want {batches}")
+        out["allpair"] = {"s": secs, "batches": batches, "k3": got,
+                          "bytes": algo.get_prep_size(), "max_err": worst}
+        algo.delete_prep_dir()
+        del algo
+        walls["mesh:base"] = time.perf_counter() - t_phase
+        print(f"[mesh:base] wall {walls['mesh:base']:.1f} s")
+
+        # --- [protocol:mesh] ----------------------------------------------
+        t_phase = time.perf_counter()
+        mark = held.mark()
+        rows, wall, _ = run_protocol("mesh_grqc_1x1", [
+            "--db", "synth:grqc", "--query", "50", "--k", str(K),
+            "--tests", "1,2", "--algos", "FWDPUSH,BASE_WHOLE_GRAPH",
+            "--mesh", "1x1"])
+        print(f"[protocol:mesh] python -m ppr_tpu_torch.cli --mesh 1x1 "
+              f"--device cuda --db synth:grqc --algos "
+              f"FWDPUSH,BASE_WHOLE_GRAPH --tests "
+              f"1,2: wall {wall:.1f} s")
+        check_protocol_rows("mesh", rows, jax_rows=JAX_ROWS["grqc"])
+        work = os.path.abspath(os.path.join(PROTOCOL_DIR, "mesh_grqc_2x2"))
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        grqc = cli.load_dataset("synth:grqc", device=dev)
+        harness = PerfHarness(grqc, seed=0, out_dir=work, progress=False,
+                              mesh=m22)
+        cwd = os.getcwd()
+        t0 = time.perf_counter()
+        try:
+            os.chdir(work)
+            with open(os.path.join(work, "harness.log"), "w") as f, \
+                    contextlib.redirect_stdout(f):
+                harness.algo_perf_batch_test(
+                    50, K, tests=(1, 2), algos={"FWDPUSH", "BASE_WHOLE_GRAPH"})
+        finally:
+            os.chdir(cwd)
+        wall2 = time.perf_counter() - t0
+        print(f"[protocol:mesh] PerfHarness(mesh=2x2 of {dev} repeated), the "
+              f"same Tests 1-2: wall {wall2:.1f} s")
+        check_protocol_rows("mesh 2x2", protocol_rows(harness.writer.path),
+                            jax_rows=JAX_ROWS["grqc"])
+        # the mesh engines and the power-method oracle of both runs
+        proto_k3 = held.hold("protocol:mesh", mark)
+        out["protocol"] = {"cli_1x1_s": wall, "harness_2x2_s": wall2,
+                           "k3": proto_k3}
+        walls["protocol:mesh"] = time.perf_counter() - t_phase
+        print(f"[protocol:mesh] wall {walls['protocol:mesh']:.1f} s")
+
+    launches = read_launches()
+    print(f"[mesh:protocol] launches on the path: {launches}; {held.calls} "
+          f"held calls made K3 {held.got}, their sweeps x launches a sweep "
+          f"{held.want}")
+    check(not held.bad, f"[mesh:protocol] K3 launches differ from sweeps x "
+          f"launches a sweep: {held.bad[:5]}")
+    check(launches["k3"] == held.got,
+          "[mesh:protocol] K3 launched outside the held calls")
+    check(launches["k3"] > 0, "[mesh:protocol] K3 was not launched")
+    check(launches["k0"] == 1, "[mesh:protocol] K0 did not run once")
+
+    # --- [mesh:scaling] and [mesh:comm], after the window ------------------
+    t_phase = time.perf_counter()
+    label = f"one card: partition overhead, no link measured ({dev} x4)"
+    for row in scaling_sweep(g, [1, 2, 4], iters=5, devices=[dev] * 4):
+        print(f"[mesh:scaling] sharded_fora_step on {row['mesh']}, batch "
+              f"{row['batch']}: {row['steps_per_sec']:.2f} steps/s, "
+              f"{row['queries_per_sec']:.2f} queries/s, time a step "
+              f"{row['overhead_vs_first']:.3f}x the 1-device mesh's; "
+              f"{label}")
+        check(row["proxy"] == (row["devices"] > 1),
+              "[mesh:scaling] a repeated card must be marked a proxy")
+    for row in engine_scaling_sweep(ds, [1, 2, 4], batch=32, iters=2,
+                                    devices=[dev] * 4):
+        print(f"[mesh:scaling] ShardedForaTopk on {row['mesh']}, batch 32: "
+              f"{row['queries_per_sec']:.1f} qps, {row['sweeps']} sweeps, "
+              f"{row['overhead_vs_1dev']:.3f}x the 1-device time; {label}")
+    walls["mesh:scaling"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        comm_model.main(["--n", "65536", "--deg", "16", "--seed", "42",
+                         "--batch", str(b), "--measure"])
+    comm = json.loads(buf.getvalue())
+    br = comm["measured_breakdown"]
+    for key, row in comm["bytes_per_sweep"].items():
+        print(f"[mesh:comm] bytes a sweep out of a device at B={b}, {key}: "
+              f"edge psum {row['edge_psum']}, node ring {row['node_ring']}, "
+              f"bf16 ring {row['node_ring_bf16']}, frontier 16/64 bf16 "
+              f"{row['node_ring_frontier_16_64_bf16']}")
+    print(f"[mesh:comm] K3 {comm['spmv_ns_per_edge']:.4f} ns an edge (half "
+          f"the bench edges, B {b}, L2 flushed); link bytes/s "
+          f"{comm['link_bytes_per_s']} and prediction {comm['prediction']} "
+          f"({torch.cuda.device_count()} card visible); measure_breakdown "
+          f"{br['mesh']} B {br['batch']}: sweep "
+          f"{br['t_sweep_full_s'] * 1e3:.3f} ms with psum, "
+          f"{br['t_sweep_local_only_s'] * 1e3:.3f} without, "
+          f"psum share {br['collective_fraction']:.4f}; {label}")
+    check(comm["spmv_ns_per_edge"] > 0 and br["distinct_devices"] == 1,
+          "[mesh:comm] no measurement")
+    # measured numbers only: the bytes a sweep are the model's formulas
+    out["comm"] = {"spmv_ns_per_edge": comm["spmv_ns_per_edge"],
+                   "link_bytes_per_s": comm["link_bytes_per_s"],
+                   "psum_share": br["collective_fraction"],
+                   "sweep_ms": br["t_sweep_full_s"] * 1e3,
+                   "sweep_local_only_ms": br["t_sweep_local_only_s"] * 1e3}
+    walls["mesh:comm"] = time.perf_counter() - t_phase
+    out["walls"] = walls
+    print(f"[mesh:protocol] walls (s): {walls}")
+    return launches, out
 
 
 def main() -> int:
@@ -3023,12 +3523,16 @@ def main() -> int:
     # --- 13. the mesh engines on one card --------------------------------
     mesh, k3_mesh = mesh_path(dev, ds, wds, sources, oracle)
     del wds
+    # --- 14. the protocol on a mesh of the card ----------------------------
+    mesh_proto, mesh_proto_out = mesh_protocol_path(dev, ds, sources, oracle)
     store = neostore_path(dev)
     launches = {k: serving[k] + layer[k] + protocol[k] + walks[k]
-                + weighted[k] + mesh[k] + store[k] for k in serving}
+                + weighted[k] + mesh[k] + mesh_proto[k] + store[k]
+                for k in serving}
     print(f"[launches] serving path {serving}, serving layer {layer}, "
           f"protocol path {protocol}, walk path {walks}, weighted path "
-          f"{weighted}, mesh path {mesh}, store path {store}")
+          f"{weighted}, mesh path {mesh}, mesh protocol path {mesh_proto}, "
+          f"store path {store}")
     source = "ppr_tpu_torch/csrc/dense_power.cu"
     print(json.dumps({"kernels": [{
         "name": "dense_power_iterations",
@@ -3107,6 +3611,8 @@ def main() -> int:
                      "max_abs_err", "ms", "plain_ms", "bound_ms",
                      "bound_by", "library_ms", "host_us", "device_ms",
                      "shapes", "engines")}},
+        "mesh_protocol": {"launches": mesh_proto["k3"],
+                          **mesh_proto_out},
     }, {
         "name": "row_gather",
         "route": "cuda",

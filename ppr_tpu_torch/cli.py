@@ -18,9 +18,10 @@ Usage::
 All six algorithms run: Monte-Carlo, Forward Push, FORA whole-graph and
 top-k, BASE and the Neo4j method, with the power method as the oracle.
 ``--fora-completion`` picks FORA's residue completion (``auto``: the cost
-model). ``--mesh`` raises ``NotImplementedError``: the protocol's mesh
-engines are ROADMAP.md's queue 1, item 18, the protocol engines (the
-serving engines are ported: ``python -m ppr_tpu_torch.serving --mesh``).
+model). ``--mesh DxG`` runs every algorithm, its preprocessing sweeps
+included, on a ``(data=D, graph=G)`` mesh of the visible cards (it
+raises when fewer than ``D*G`` are visible), or of ``D*G`` CPU devices
+with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import sys
 from .graph import io
 from .graph.neostore import is_neo4j_store, load_neo4j_store
 from .harness import PerfHarness
+from .parallel.mesh import make_mesh, parse_mesh
 from .utils.timer import trace
 
 
@@ -89,8 +91,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler chrome trace of the batch "
                         "test here")
     p.add_argument("--mesh", default=None, metavar="DxG",
-                   help="device mesh for the protocol (not ported: "
-                        "raises)")
+                   help="run every algorithm (incl. preprocessing sweeps) "
+                        "on a (data=D, graph=G) device mesh, e.g. --mesh "
+                        "1x1 (one card through the mesh engines) or --mesh "
+                        "2x2; D*G cards must be visible (D*G CPU devices "
+                        "with --device cpu)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the graph and the algorithms run (default "
                         "cuda: exits with an error when no card is "
@@ -146,18 +151,21 @@ def load_dataset(db: str, rel: str | None = None, device=None):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: the protocol's mesh engines are not ported yet "
-            "(ROADMAP.md, queue 1, item 18, the protocol engines)"
-        )
     dataset = load_dataset(args.db, rel=args.rel, device=args.device)
     print(f"Loaded dataset '{dataset.name}': {dataset.graph.n} nodes, "
           f"{dataset.graph.m} edges, on {dataset.graph.device}")
+    mesh = None
+    if args.mesh:
+        d, g_ax = parse_mesh(args.mesh)
+        mesh = make_mesh(d * g_ax, data=d, graph=g_ax,
+                         devices=(["cpu"] * (d * g_ax)
+                                  if args.device == "cpu" else None))
+        print(f"Mesh: data={d} x graph={g_ax} ({d * g_ax} device(s), "
+              f"sharded engines)")
     harness = PerfHarness(
         dataset, alpha=args.alpha, seed=args.seed,
         out_dir=args.out_dir, batched=not args.sequential,
-        fora_completion=args.fora_completion,
+        fora_completion=args.fora_completion, mesh=mesh,
     )
 
     # the reference closes its DB in a JVM shutdown hook (PPR.java:35-50):

@@ -18,10 +18,10 @@ queries are store reads even in Test 3, and its store is not deleted
 after a test. ``fora_completion`` goes to every algorithm with a
 ``completion`` (both FORA algorithms), as in the JAX harness: ``auto``
 lets FORA's cost model choose, ``spmv`` and ``walks`` force a completion.
-A device mesh raises ``NotImplementedError``: the protocol's mesh
-engines (``ppr_tpu/parallel/mesh_algos.py``) are ROADMAP.md's queue 1,
-item 18, the protocol engines; the serving engines are ported
-(``ppr_tpu_torch/parallel/``).
+With a device mesh (``mesh=``, a :class:`~.parallel.mesh.Mesh`) every
+algorithm, its preprocessing sweeps included, is built by
+:func:`~.parallel.mesh_algos.mesh_algo_obj` and runs on the mesh; the
+completion is then the mesh engines' own, as in the JAX harness.
 
 Two timing modes: ``batched=True`` times all Q queries as one device batch
 (per-query time = batch time / Q); ``batched=False`` times each query
@@ -191,14 +191,12 @@ class PerfHarness:
                  out_dir: str = ".", batched: bool = True,
                  progress: bool = True, warmup: bool = True,
                  fora_completion: str = "auto", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: the protocol's mesh engines are not ported yet "
-                "(ROADMAP.md, queue 1, item 18, the protocol engines)"
-            )
         if fora_completion not in ("auto", "spmv", "walks"):
             raise ValueError(f"unknown FORA completion {fora_completion!r}")
         self.fora_completion = fora_completion
+        #: a ``parallel.mesh.Mesh``: every algorithm comes from
+        #: ``mesh_algo_obj`` and runs on it
+        self.mesh = mesh
         self.dataset = dataset
         self.alpha = alpha
         self.seed = seed
@@ -234,10 +232,16 @@ class PerfHarness:
         to_be_preprocessed: bool = False,
         test_type: str = TestType.WHOLE_GRAPH,
     ) -> PerfResult:
-        conf = AlgoConf(self.alpha, seed=self.seed)
-        algo = conf.new_algo_obj(algo_type, self.dataset, k)
-        if hasattr(algo, "completion"):
-            algo.completion = self.fora_completion
+        if self.mesh is not None:
+            from .parallel.mesh_algos import mesh_algo_obj
+
+            algo = mesh_algo_obj(algo_type, self.dataset, self.alpha, k,
+                                 mesh=self.mesh, seed=self.seed)
+        else:
+            algo = AlgoConf(self.alpha, seed=self.seed).new_algo_obj(
+                algo_type, self.dataset, k)
+            if hasattr(algo, "completion"):
+                algo.completion = self.fora_completion
         sources = self.get_query_nodes(query_num)
         oracle_rows = self._oracle_rows(sources)
         report = progress_printer(query_num, enabled=self.progress)

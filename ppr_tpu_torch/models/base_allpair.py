@@ -42,6 +42,13 @@ class BaseAllPair(PPRAlgorithm):
         self._k: int | None = None
         self._last_order: list[np.ndarray] = []
 
+    def _make_bws(self, threshold: float):
+        """The reverse-push engine of a sweep at ``threshold``: the
+        single-device :class:`BackwardSearch` here; the mesh variants
+        (``parallel/sharded_allpair.py``, ``node_sharded_allpair.py``)
+        override it."""
+        return BackwardSearch(self.graph, self.alpha, threshold)
+
     # --- Preprocessing_Interface ------------------------------------------
     def make_store(self, threshold, k) -> PPRStore:
         root = os.path.join(self.prep_dirname, self.dataset.name,
@@ -53,8 +60,7 @@ class BaseAllPair(PPRAlgorithm):
         selection, and discard it (the harness calls this untimed)."""
         threshold = float(threshold)
         targets = np.arange(min(self.target_batch, self.graph.n))
-        reserve = BackwardSearch(self.graph, self.alpha, threshold) \
-            .whole_graph_device(targets)
+        reserve = self._make_bws(threshold).whole_graph_device(targets)
         threshold_nonzeros(reserve, self.graph.node_mask, threshold,
                            rows=len(targets))
 
@@ -64,7 +70,7 @@ class BaseAllPair(PPRAlgorithm):
         threshold = float(threshold)
         k = int(k)
         n = self.graph.n
-        bws = BackwardSearch(self.graph, self.alpha, threshold)
+        bws = self._make_bws(threshold)
         report = progress_printer(n, enabled=progress)
 
         # pi(s, t) >= threshold as COO triplets, selected on the device so

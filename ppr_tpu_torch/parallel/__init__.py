@@ -1,19 +1,32 @@
-"""Mesh engines: FORA top-k and FORA whole-graph on a ``(data, graph)``
-grid of devices driven by one process — port of the serving half of
-``ppr_tpu/parallel/``.
+"""Mesh engines on a ``(data, graph)`` grid of devices driven by one
+process — port of ``ppr_tpu/parallel/``: FORA top-k and whole-graph
+serving (``sharded_fora``, ``node_sharded_fora``), the protocol's mesh
+drop-ins for every algorithm (``mesh_algos``), the edge- and node-sharded
+BASE all-pair engines (``sharded_allpair``, ``node_sharded_allpair``), the
+scaling sweep (``scaling``), the communication model (``comm_model``) and
+the dry run (``dryrun``).
 
-Not ported yet (ROADMAP.md, queue 1, item 18, the protocol engines): the
-protocol's mesh drop-ins (``mesh_algos.py``), the all-pair engines
-(``sharded_allpair.py``, ``node_sharded_allpair.py``), ``scaling.py``,
-``comm_model.py`` and multi-host ``distributed.py``.
+Not ported yet: meshes across hosts (``distributed``, whose entry points
+raise; ROADMAP.md, queue 1, item 18, multi-host).
 """
 
-from .dryrun import dryrun_multichip  # noqa: F401
+from .dryrun import dryrun_multichip, dryrun_sharded_base  # noqa: F401
 from .mesh import Mesh, make_mesh  # noqa: F401
+from .mesh_algos import (  # noqa: F401
+    MeshForaWholeGraph,
+    MeshForwardPush,
+    MeshMonteCarlo,
+    MeshNeo4jMethod,
+    mesh_algo_obj,
+)
 from .node_sharded import (  # noqa: F401
     make_node_sharded_propagate,
     make_node_sharded_propagate_ring,
     make_node_sharded_walk_counts,
+)
+from .node_sharded_allpair import (  # noqa: F401
+    NodeShardedBackwardSearch,
+    node_sharded_base_allpair,
 )
 from .node_sharded_fora import (  # noqa: F401
     NodeShardedForaTopk,
@@ -24,5 +37,9 @@ from .sharded import (  # noqa: F401
     make_sharded_walk_counts,
     shard_graph,
     sharded_fora_step,
+)
+from .sharded_allpair import (  # noqa: F401
+    ShardedBackwardSearch,
+    sharded_base_allpair,
 )
 from .sharded_fora import ShardedForaTopk  # noqa: F401

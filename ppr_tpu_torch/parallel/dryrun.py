@@ -1,31 +1,36 @@
 """The mesh dry run — port of the contract of
-``__graft_entry__.py::dryrun_multichip`` (its lines 73-167, and the
-fixed-schedule step of 189-195).
+``__graft_entry__.py::dryrun_multichip`` (its lines 73-230).
 
 :func:`dryrun_multichip` builds an ``n_devices`` mesh and runs every
-serving engine of :mod:`ppr_tpu_torch.parallel` on a small seeded graph,
-holding each to the single-device engine: a correctness run, not a
-compile check. ``devices=["cuda:0"] * 4`` runs it on one card, ``["cpu"]
-* 8`` on the CPU.
-
-The sharded BASE part of the JAX dry run (the all-pair engines and the
-protocol's mesh preprocessing) comes with those engines:
-:func:`dryrun_sharded_base` raises until then.
+engine of :mod:`ppr_tpu_torch.parallel` on small seeded graphs, holding
+each to the single-device engine: a correctness run, not a compile check.
+Its sharded BASE part, :func:`dryrun_sharded_base`, holds both all-pair
+engines to the single-device backward search and runs each protocol
+algorithm's preprocessing through :func:`~.mesh_algos.mesh_algo_obj`,
+reading a stored row back. ``devices=["cuda:0"] * 4`` runs it on one
+card, ``["cpu"] * 8`` on the CPU.
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
+
 import numpy as np
-import torch
 
 from ..graph.io import synthetic_powerlaw
+from ..models.backward_search import BackwardSearch
+from ..models.config import AlgoType
 from ..models.fora import ForaTopk
 from ..ops.topk import topk_ids_with_ties
 from .mesh import make_mesh
+from .mesh_algos import mesh_algo_obj
 from .node_sharded import (gather_nodes, make_node_sharded_propagate_ring,
                            make_node_sharded_walk_counts)
+from .node_sharded_allpair import NodeShardedBackwardSearch
 from .node_sharded_fora import NodeShardedForaTopk, NodeShardedForaWholeGraph
 from .sharded import gather_columns, sharded_fora_step
+from .sharded_allpair import ShardedBackwardSearch
 from .sharded_fora import ShardedForaTopk
 
 
@@ -118,17 +123,53 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     assert np.isfinite(mass).all()
     np.testing.assert_allclose(mass, 1.0, atol=1e-5)
     out["step_mass_err"] = float(np.abs(mass - 1.0).max())
-    for dev in mesh.unique_devices():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+    out["base"] = dryrun_sharded_base(n_devices, devices=devices)
+    mesh.synchronize()
     return out
 
 
-def dryrun_sharded_base(n_devices: int, devices=None) -> None:
-    """The JAX dry run's sharded BASE part (``__graft_entry__.py:168`` on):
-    the all-pair engines and the protocol's mesh preprocessing are not
-    ported yet."""
-    raise NotImplementedError(
-        "the sharded BASE dry run needs the all-pair mesh engines and the "
-        "protocol's mesh engines (ROADMAP.md, queue 1, item 18, the "
-        "protocol engines)")
+def dryrun_sharded_base(n_devices: int, devices=None) -> dict:
+    """The sharded BASE part of the dry run (``__graft_entry__.py:
+    168-230``): both all-pair engines against the single-device backward
+    search, then each protocol algorithm's preprocessing on the mesh with
+    a stored row read back, in a temporary directory. Raises
+    ``AssertionError`` on a mismatch; returns the errors and store
+    bytes."""
+    mesh = make_mesh(n_devices, devices=devices)
+    ds = synthetic_powerlaw(512, 4, seed=1, dense_threshold=0,
+                            device=mesh.controller)
+    targets = np.arange(6, dtype=np.int32) * 11 % ds.graph.n
+    want = BackwardSearch(ds.graph, 0.15, 1e-3).whole_graph(targets)
+    out = {}
+    for label, engine in (("edge", ShardedBackwardSearch),
+                          ("node", NodeShardedBackwardSearch)):
+        got = engine(ds.graph, 0.15, 1e-3, mesh=mesh).whole_graph(targets)
+        np.testing.assert_allclose(got, want, atol=5e-6, rtol=1e-4,
+                                   err_msg=f"{label} all-pair engine")
+        out[f"{label}_bws_err"] = float(np.abs(got - want).max())
+
+    prep_ds = synthetic_powerlaw(256, 4, seed=3, dense_threshold=0,
+                                 device=mesh.controller)
+    source = 13 % prep_ds.n
+    stores = {}
+    with tempfile.TemporaryDirectory() as td:
+        for algo_type, param in ((AlgoType.FWDPUSH, 1e-3),
+                                 (AlgoType.MC, 2.0),
+                                 (AlgoType.NEO4J_METHOD, 5),
+                                 (AlgoType.FORA_WHOLE_GRAPH, 2.0),
+                                 (AlgoType.BASE_WHOLE_GRAPH, 1e-3)):
+            algo = mesh_algo_obj(algo_type, prep_ds, 0.15, 10, mesh=mesh)
+            # the store's root is relative to prep_dirname: keep it in td
+            algo.prep_dirname = os.path.join(td, algo.prep_dirname)
+            if algo_type == AlgoType.BASE_WHOLE_GRAPH:
+                algo.preprocessing(param, -1, progress=False)
+            else:
+                algo.preprocessing(-1.0, param, progress=False)
+            algo.read_preprocessed_ppr(source)
+            row = np.asarray(algo.get_whole_graph_dense())
+            assert np.isfinite(row).all() and row.sum() > 0.5, algo_type
+            assert algo.get_prep_size() > 0, algo_type
+            stores[algo_type.value] = algo.get_prep_size()
+            algo.delete_prep_dir()
+    out["store_bytes"] = stores
+    return out

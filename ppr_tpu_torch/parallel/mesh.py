@@ -84,6 +84,13 @@ class Mesh:
         """The first device: where the loop flags are combined."""
         return self.devices[0][0]
 
+    def synchronize(self) -> None:
+        """Wait for the queued work of every card of the mesh (a no-op on
+        the CPU), so that a host clock read next covers it."""
+        for dev in self.unique_devices():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
     def unique_devices(self) -> list[torch.device]:
         seen = []
         for row in self.devices:

@@ -52,34 +52,38 @@ def host_arrays(g: Graph) -> dict:
 
 @dataclasses.dataclass
 class EdgeChunk:
-    """One ``graph`` shard's contiguous chunk ``[lo, hi)`` of the
-    destination-sorted edges and the node arrays its push needs, on the
-    shard's device."""
+    """One ``graph`` shard's contiguous chunk ``[lo, hi)`` of the sorted
+    edges and the node arrays its push needs, on the shard's device. Read
+    by destination (:func:`edge_chunks`), ``src`` holds the edges' sources
+    and ``ptr`` segments them by destination; read by source
+    (:func:`edge_chunks_bysrc`), ``src`` holds their destinations and
+    ``ptr`` segments them by source."""
 
-    src: torch.Tensor            # int32[hi - lo], dst-sorted
+    src: torch.Tensor            # int32[hi - lo], the rows K3 gathers
     ptr: torch.Tensor            # int64[n_pad + 1], clamped to the chunk
     coef: torch.Tensor | None    # f32[hi - lo] on a weighted graph
     inv_deg: torch.Tensor        # f32[n_pad]
     dang_ids: torch.Tensor       # int64[#dangling]
     out_deg: torch.Tensor        # int32[n_pad]
 
+    def gather(self, table: torch.Tensor) -> torch.Tensor:
+        """``out[v] = sum of coef[e] * table[src[e]]`` over the chunk's
+        edges of segment ``v`` (``coef`` 1 on an unweighted graph): K3 on
+        the card, its coefficient mode on a weighted graph."""
+        return gather_segment_sum(table, self.src, self.ptr, coef=self.coef)
+
     def push(self, rem: torch.Tensor) -> torch.Tensor:
-        """This chunk's share of ``push_out_t(rem)``: ``[n_pad, B]``, K3
-        on the card (its coefficient mode on a weighted graph)."""
+        """This chunk's share of ``push_out_t(rem)``: ``[n_pad, B]``."""
         if self.coef is None:
-            return gather_segment_sum(rem * self.inv_deg[:, None], self.src,
-                                      self.ptr)
-        return gather_segment_sum(rem, self.src, self.ptr, coef=self.coef)
+            return self.gather(rem * self.inv_deg[:, None])
+        return self.gather(rem)
 
 
-def edge_chunks(g: Graph, mesh: Mesh) -> list[list[EdgeChunk]]:
-    """``[data][graph]`` edge chunks: shard ``(d, s)`` holds chunk ``s`` of
-    ``graph`` equal chunks of the ``m_pad`` destination-sorted edges (the
-    JAX package's ``P("graph")`` split), replicated over ``data``."""
+def _chunks(g: Graph, mesh: Mesh, rows, ptr, coef) -> list[list[EdgeChunk]]:
+    """``[data][graph]`` chunks of ``m_pad`` edges sorted by segment:
+    shard ``(d, s)`` holds chunk ``s`` of ``graph`` equal chunks (the JAX
+    package's ``P("graph")`` split), replicated over ``data``."""
     s_graph = mesh.graph
-    src = g.edge_src_bydst.cpu().numpy()
-    ptr = g.bydst_ptr.cpu().numpy()
-    coef = g.edge_coef_bydst.cpu().numpy() if g.weighted else None
     out_deg = g.out_deg.cpu().numpy()
     inv_deg = _safe_inv_deg(g.out_deg.cpu()).numpy()
     dang = g.dang_ids.cpu().numpy()
@@ -94,12 +98,31 @@ def edge_chunks(g: Graph, mesh: Mesh) -> list[list[EdgeChunk]]:
                 return torch.tensor(np.ascontiguousarray(x), device=dev)
 
             chunks.append(EdgeChunk(
-                src=put(src[lo:hi]), ptr=put(np.clip(ptr, lo, hi) - lo),
+                src=put(rows[lo:hi]), ptr=put(np.clip(ptr, lo, hi) - lo),
                 coef=None if coef is None else put(coef[lo:hi]),
                 inv_deg=put(inv_deg), dang_ids=put(dang),
                 out_deg=put(out_deg)))
         out.append(chunks)
     return out
+
+
+def edge_chunks(g: Graph, mesh: Mesh) -> list[list[EdgeChunk]]:
+    """``[data][graph]`` chunks of the destination-sorted edges: K3 over a
+    chunk gathers at the sources and sums by destination, the forward
+    push (``ppr_tpu/parallel/sharded_fora.py:45``)."""
+    return _chunks(g, mesh, g.edge_src_bydst.cpu().numpy(),
+                   g.bydst_ptr.cpu().numpy(),
+                   g.edge_coef_bydst.cpu().numpy() if g.weighted else None)
+
+
+def edge_chunks_bysrc(g: Graph, mesh: Mesh) -> list[list[EdgeChunk]]:
+    """``[data][graph]`` chunks of the source-sorted (primary) edges: K3
+    over a chunk gathers at the destinations and sums by source, the
+    reverse push (``ppr_tpu/parallel/sharded_allpair.py:41``). Padding
+    edges sit on the sentinel node, whose residue is always zero."""
+    return _chunks(g, mesh, g.edge_dst.cpu().numpy(),
+                   g.bysrc_ptr.cpu().numpy(),
+                   g.edge_coef.cpu().numpy() if g.weighted else None)
 
 
 @dataclasses.dataclass
@@ -137,6 +160,15 @@ def gather_columns(parts) -> torch.Tensor:
     """The node-major ``[n_pad, B]`` of replicated column parts, on the
     host (graph shard 0 of each data row)."""
     return torch.cat([row[0].cpu() for row in parts], dim=1)
+
+
+def collect_rows(parts, device) -> torch.Tensor:
+    """Batch-major ``[B, n_pad]`` on ``device``, contiguous, from
+    ``[data][graph]`` node-major parts: each data row's column block is
+    its parts stacked in shard order (pass ``[row[:1] for row in parts]``
+    where a row's parts are replicas)."""
+    cols = [torch.cat([x.to(device) for x in row], dim=0) for row in parts]
+    return torch.cat(cols, dim=1).T.contiguous()
 
 
 def onehot_t(sources: np.ndarray, n_pad: int, device) -> torch.Tensor:

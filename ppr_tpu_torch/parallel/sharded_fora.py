@@ -32,13 +32,15 @@ from .mesh import Mesh, make_mesh, psum
 from .sharded import EdgeChunk, edge_chunks, onehot_t, run_annealed
 
 
-def pad_batch(sources, unit: int) -> tuple[np.ndarray, int]:
+def pad_batch(sources, unit: int, min_b: int = 8) -> tuple[np.ndarray, int]:
     """``(sources padded, b)``: the batch padded with node 0 to a multiple
-    of ``unit`` (the mesh's ``data``) and to at least 8 rows, as the
-    single-device engine pads (``models/fora._pad_sources``)."""
+    of ``unit`` (the mesh's ``data``) and to at least ``min_b`` rows, as
+    the single-device engine pads (``models/fora._pad_sources``); the
+    consumers drop the padding rows (``_pad_rows`` of
+    ``ppr_tpu/parallel/mesh_algos.py:52`` too)."""
     sources = np.asarray(sources, np.int32)
     b = len(sources)
-    b_pad = -(-max(8, b) // unit) * unit
+    b_pad = -(-max(min_b, b) // unit) * unit
     if b_pad > b:
         sources = np.concatenate([sources, np.zeros(b_pad - b, np.int32)])
     return sources, b

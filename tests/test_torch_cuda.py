@@ -992,3 +992,156 @@ def test_dryrun_on_one_card(cuda):
 
     out = dryrun_multichip(4, devices=[cuda] * 4)
     assert out["edge_err"] <= 5e-6 and out["node_err"] <= 5e-6
+    assert out["base"]["edge_bws_err"] <= 5e-6
+    assert out["base"]["node_bws_err"] <= 5e-6
+    assert min(out["base"]["store_bytes"].values()) > 0
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "coef"])
+@pytest.mark.parametrize("b", [3, 64, 512])
+def test_k3_by_source_over_an_edge_chunk_matches_plain(cuda, weighted, b):
+    """The all-pair edge engine's reverse step, K3 over a chunk of the
+    source-sorted edges (gather at the destinations, sum by source, the
+    row pointer clamped to the chunk), equals the plain version bit for
+    bit (its coefficient mode on a weighted graph)."""
+    from ppr_tpu_torch.parallel.mesh import make_mesh
+    from ppr_tpu_torch.parallel.sharded import edge_chunks_bysrc
+
+    g = _mesh_graph(cuda, weighted).graph
+    rem = torch.rand((g.n_pad, b), device=cuda)
+    before = row_gather.segment_sum_launches
+    for ch in edge_chunks_bysrc(g, make_mesh(4, data=1, graph=4,
+                                             devices=[cuda] * 4))[0]:
+        want = row_gather.gather_segment_sum_ref(
+            rem.cpu(), ch.src.cpu(), ch.ptr.cpu(),
+            None if ch.coef is None else ch.coef.cpu())
+        assert torch.equal(ch.gather(rem).cpu(), want)
+    assert row_gather.segment_sum_launches == before + 4
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "coef"])
+@pytest.mark.parametrize("b", [3, 64, 512])
+def test_k3_over_a_reverse_ring_block_matches_plain(cuda, weighted, b):
+    """Every block of the node-sharded all-pair ring (a shard's sources,
+    one destination range, sorted by source) through K3 equals the plain
+    version bit for bit."""
+    from ppr_tpu_torch.parallel.mesh import make_mesh
+    from ppr_tpu_torch.parallel.node_sharded_allpair import reverse_shards
+
+    g = _mesh_graph(cuda, weighted).graph
+    shards = reverse_shards(g, make_mesh(4, data=1, graph=4,
+                                         devices=[cuda] * 4))[0]
+    table = torch.rand((g.n_pad // 4, b), device=cuda)
+    for sh in shards:
+        for blk in sh.blocks:
+            if blk.src is None:
+                continue
+            want = row_gather.gather_segment_sum_ref(
+                table.cpu(), blk.src.cpu(), blk.ptr.cpu(),
+                None if blk.coef is None else blk.coef.cpu())
+            assert torch.equal(blk.push(table).cpu(), want)
+
+
+def _mesh_of(dev, d, g):
+    from ppr_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(d * g, data=d, graph=g, devices=[dev] * (d * g))
+
+
+@pytest.mark.parametrize("algo,param", [("FWDPUSH", 1e-6),
+                                        ("NEO4J_METHOD", 20)])
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "coef"])
+def test_mesh_drop_ins_on_one_card_match_cpu(cuda, algo, param, weighted):
+    """Forward Push and the Neo4j method on a 2x2 mesh of the card
+    repeated answer as the same mesh of CPU devices (within 1e-6: the
+    card's column sums add in another order; Forward Push on the same
+    sweeps), and launch K3 at least once a chunk and sweep."""
+    from ppr_tpu_torch.parallel.mesh_algos import mesh_algo_obj
+
+    sources = np.random.default_rng(4).integers(0, 4096, 16)
+    outs = []
+    for dev in ("cpu", cuda):
+        ds = _mesh_graph(dev, weighted)
+        eng = mesh_algo_obj(AlgoType(algo), ds, ALPHA, 10,
+                            mesh=_mesh_of(dev, 2, 2))
+        before = row_gather.segment_sum_launches
+        outs.append((eng.compute_whole_graph_batch(sources, param),
+                     getattr(eng, "last_sweeps", param)))
+    launched = row_gather.segment_sum_launches - before
+    (cpu, c_sweeps), (card, g_sweeps) = outs
+    assert g_sweeps == c_sweeps > 0
+    assert launched >= g_sweeps * 4
+    np.testing.assert_allclose(card, cpu, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("engine,shape", [("edge", (2, 2)),
+                                          ("node", (1, 4))])
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "coef"])
+def test_allpair_engines_on_one_card_match_cpu(cuda, engine, shape,
+                                               weighted):
+    """Both all-pair engines on one card repeated answer as the same mesh
+    of CPU devices, on the same sweeps; at 1x1 the card's engine is the
+    card's single-device backward search bit for bit."""
+    from ppr_tpu_torch.models.backward_search import BackwardSearch
+    from ppr_tpu_torch.parallel.node_sharded_allpair import (
+        NodeShardedBackwardSearch)
+    from ppr_tpu_torch.parallel.sharded_allpair import ShardedBackwardSearch
+
+    cls = ShardedBackwardSearch if engine == "edge" \
+        else NodeShardedBackwardSearch
+    targets = np.arange(0, 4096, 97)
+    outs = []
+    for dev in ("cpu", cuda):
+        g = _mesh_graph(dev, weighted).graph
+        eng = cls(g, ALPHA, 1e-4, mesh=_mesh_of(dev, *shape))
+        outs.append((eng.whole_graph(targets), eng.last_sweeps))
+    (cpu, cs), (card, gs) = outs
+    assert gs == cs > 0
+    np.testing.assert_allclose(card, cpu, atol=1e-6, rtol=0)
+    g = _mesh_graph(cuda, weighted).graph
+    np.testing.assert_array_equal(
+        cls(g, ALPHA, 1e-4, mesh=_mesh_of(cuda, 1, 1)).whole_graph(targets),
+        BackwardSearch(g, ALPHA, 1e-4).whole_graph(targets))
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "coef"])
+def test_fora_whole_graph_and_mc_mesh_on_one_card(cuda, weighted):
+    """FORA whole-graph on a 2x2 mesh of the card is within eps/n + 1e-5
+    of the power method (its push rounds follow the clock, so it is held
+    to the oracle); Monte-Carlo's rows have mass 1 within 1e-3 and lie
+    within 0.05 of it."""
+    from ppr_tpu_torch.parallel.mesh_algos import (MeshForaWholeGraph,
+                                                   MeshMonteCarlo)
+
+    ds = _mesh_graph(cuda, weighted)
+    sources = np.array([1, 70, 800, 3000])
+    exact = power_method_batch(ds.graph, sources, ALPHA, 200).cpu().numpy()
+    wg = MeshForaWholeGraph(ds, ALPHA, mesh=_mesh_of(cuda, 2, 2))
+    out = wg.compute_whole_graph_batch(sources, 0.5)
+    assert np.abs(out - exact).max() <= 0.5 / ds.n + 1e-5
+    mc = MeshMonteCarlo(ds, ALPHA, mesh=_mesh_of(cuda, 2, 2), seed=3)
+    walks = mc.compute_whole_graph_batch(sources, 1.0)
+    np.testing.assert_allclose(walks.sum(axis=1), 1.0, atol=1e-3)
+    assert np.abs(walks - exact).max() < 0.05
+
+
+def test_cli_mesh_on_the_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """``--mesh 1x1 --device cuda`` writes the rows of ``--mesh 1x1
+    --device cpu`` (Test 1; max-err within 1e-8)."""
+    from ppr_tpu_torch import cli
+
+    rows = {}
+    for dev in ("cpu", "cuda"):
+        out = tmp_path / dev
+        out.mkdir()
+        monkeypatch.chdir(out)
+        assert cli.main(["--db", "synth:107x3@7", "--sweep", "got",
+                         "--query", "8", "--tests", "1", "--algos",
+                         "FWDPUSH,NEO4J_METHOD", "--mesh", "1x1",
+                         "--device", dev, "--out-dir", str(out)]) == 0
+        text = (out / "synth_107_7_AlgoPerfResults.txt").read_text()
+        rows[dev] = [line.split(",") for line in text.splitlines()
+                     if "," in line]
+    assert len(rows["cuda"]) == len(rows["cpu"]) == 10
+    for a, b in zip(rows["cuda"], rows["cpu"]):
+        assert a[0] == b[0] and abs(float(a[-1]) - float(b[-1])) <= 1e-8

@@ -32,6 +32,8 @@ from ppr_tpu_torch.graph.csr import graph_from_numpy
 from ppr_tpu_torch.graph.io import Dataset
 from ppr_tpu_torch.models import fora as tfora
 from ppr_tpu_torch.models.config import AlgoConf, AlgoType
+from ppr_tpu_torch.parallel import distributed
+from ppr_tpu_torch.parallel.mesh import make_mesh
 from ppr_tpu_torch.utils.timer import PhaseTimer
 
 Q, K = 8, 5
@@ -279,8 +281,14 @@ def test_unported_algorithm_raises_at_its_section(small, tmp_path,
 
 def test_harness_unported_options_raise(datasets):
     _, tds = datasets["dense"]
-    with pytest.raises(NotImplementedError, match="item 18"):
-        th.PerfHarness(tds, mesh=object())
+    # a mesh is taken: every algorithm comes from mesh_algo_obj
+    # (tests/test_torch_mesh_algos.py runs them); only a mesh across hosts
+    # is not ported
+    mesh = make_mesh(4, data=2, graph=2, devices=["cpu"] * 4)
+    assert th.PerfHarness(tds, mesh=mesh).mesh is mesh
+    for entry in (distributed.initialize_from_env, distributed.global_mesh):
+        with pytest.raises(NotImplementedError, match="item 18, multi-host"):
+            entry()
     # the walk completion is ported: every mode is taken, as in JAX
     for mode in ("auto", "spmv", "walks"):
         assert th.PerfHarness(tds, fora_completion=mode).fora_completion \
@@ -395,9 +403,16 @@ def test_cli_main_push_algorithms(tmp_path, monkeypatch):
 
 def test_cli_unported_flags_raise(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tcli.main(["--db", "synth:107x3@7", "--mesh", "1x1",
-                   "--device", "cpu"])
+    # --mesh runs the protocol on the mesh engines (rows against the JAX
+    # CLI's --mesh rows: tests/test_torch_mesh_algos.py)
+    assert tcli.main(["--db", "synth:107x3@7", "--mesh", "1x1",
+                      "--device", "cpu", "--query", "2", "--tests", "1",
+                      "--algos", "NEO4J_METHOD"]) == 0
+    rows = (tmp_path / "synth_107_7_AlgoPerfResults.txt").read_text()
+    assert "1.3 NEO4J_METHOD\n5," in rows
+    with pytest.raises(ValueError, match="DATAxGRAPH"):
+        tcli.main(["--db", "synth:107x3@7", "--mesh", "2", "--device",
+                   "cpu"])
     # --fora-completion walks is ported (tests/test_torch_fora_walks.py
     # runs it); the flag parses as in the JAX CLI
     assert tcli.build_parser().parse_args(

@@ -54,6 +54,12 @@ MODULES = [
     "ppr_tpu_torch.parallel.node_sharded",
     "ppr_tpu_torch.parallel.node_sharded_fora",
     "ppr_tpu_torch.parallel.dryrun",
+    "ppr_tpu_torch.parallel.mesh_algos",
+    "ppr_tpu_torch.parallel.sharded_allpair",
+    "ppr_tpu_torch.parallel.node_sharded_allpair",
+    "ppr_tpu_torch.parallel.scaling",
+    "ppr_tpu_torch.parallel.comm_model",
+    "ppr_tpu_torch.parallel.distributed",
     "chip_smoke",
     "dense_power_ablation",
     "row_gather_ablation",

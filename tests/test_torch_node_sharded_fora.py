@@ -58,6 +58,16 @@ def port_mesh(d, g):
     return make_mesh(d * g, data=d, graph=g, devices=["cpu"] * (d * g))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch thread: the walks and the ring are many small ops, which
+    threads only slow down beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def datasets(tiny):
     rng = np.random.default_rng(2)
@@ -453,5 +463,12 @@ def test_dryrun_on_the_cpu(n):
     out = dryrun.dryrun_multichip(n, devices=["cpu"] * n)
     assert out["edge_err"] <= 5e-6 and out["node_err"] <= 5e-6
     assert len(set(out["sweeps"].values())) == 1
-    with pytest.raises(NotImplementedError, match="item 18"):
-        dryrun.dryrun_sharded_base(n, devices=["cpu"] * n)
+    # its sharded BASE part (dryrun_sharded_base): both all-pair engines
+    # held to the single-device backward search, every protocol
+    # algorithm's preprocessing on the mesh with a row read back
+    base = out["base"]
+    assert base["edge_bws_err"] <= 5e-6 and base["node_bws_err"] <= 5e-6
+    assert sorted(base["store_bytes"]) == sorted(
+        ["FWDPUSH", "MC", "NEO4J_METHOD", "FORA_WHOLE_GRAPH",
+         "BASE_WHOLE_GRAPH"])
+    assert min(base["store_bytes"].values()) > 0
