@@ -4,8 +4,9 @@ against the CPU baseline, as ``bench.py`` measures the JAX package.
 
 Workload (``bench.py``'s): top-k SSPPR at alpha=0.15, eps=0.5, k=10 on the
 seeded ~1M-edge graph ``synthetic_powerlaw(65536, 16, seed=42,
-dense_threshold=0)``, a batch of 2048 sources, 4096 bf16 hubs, the port's
-FORA top-k serving path (``ForaTopk`` with ``push="none"``; the tail
+dense_threshold=0)``, a batch of 2048 sources, bf16 hubs by ``bench.py``'s
+rule (:func:`hub_count`: 4096 at B >= 1024, else the automatic count), the
+port's FORA top-k serving path (``ForaTopk`` with ``push="none"``; the tail
 through K3). Accuracy is precision@10 against the port's power method
 (``power_method_batch``, sparse at this size), with the tie tolerance
 eps/n and the dense recompute of rows whose tie set fills the selection
@@ -43,17 +44,26 @@ def parse_args(argv=None):
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--no-hub-split", action="store_true",
                     help="disable the dense-hub hybrid push (default: 4096 "
-                         "hubs, bf16 hub matrix)")
-    ap.add_argument("--hub-split", type=int, default=4096,
-                    help="hub count (the port has no automatic count)")
+                         "hubs at B >= 1024, else the automatic count; bf16 "
+                         "hub matrix)")
+    ap.add_argument("--hub-split", type=int, default=None,
+                    help="override the hub count")
     args = ap.parse_args(argv)
-    if args.hub_split <= 0:
+    if args.hub_split is not None and args.hub_split <= 0:
         ap.error("--hub-split must be positive; use --no-hub-split to "
                  "disable the hybrid push")
     if args.quick:
         args.n, args.deg, args.batch = 4096, 8, 8
         args.cpu_queries, args.acc_queries = 1, 4
     return args
+
+
+def hub_count(batch: int, hub_split: int | None = None) -> int | str:
+    """``bench.py``'s hub count (``bench.py:212-213``): ``hub_split`` when
+    given, else 4096 at B >= 1024 and ``"auto"`` below."""
+    if hub_split is not None:
+        return hub_split
+    return 4096 if batch >= 1024 else "auto"
 
 
 def run(args) -> dict:
@@ -79,7 +89,8 @@ def run(args) -> dict:
 
     fora = AlgoConf(args.alpha, seed=7).set_conf_fora_topk(ds, args.k)
     if not args.no_hub_split:
-        fora.enable_hub_split(args.hub_split, dtype=torch.bfloat16)
+        fora.enable_hub_split(hub_count(args.batch, args.hub_split),
+                              dtype=torch.bfloat16)
 
     # a first call, untimed (allocator growth, the K0 probe, the build of
     # the kernels on a fresh checkout), then the timed one

@@ -185,7 +185,28 @@ script exits non-zero:
    window is made in a call ``HeldK3`` holds (each mesh engine's sweep
    loop and the power-method oracle), and each such call's launches equal
    its loop's sweeps times one launch a chunk or non-empty ring block;
-   each phase prints its wall.
+   each phase prints its wall;
+15. the automatic hub count and the 1M cell (``scale_path``):
+   ``[hubs:constants]`` (the rule's two prices measured at B 512 on the
+   bench graph beside the constants in ``ops/hub_split.py``, each within
+   2x), then one launch window: ``[hubs:auto]`` (the rule's count on the
+   bench graph; at B 512 one call at that count and one at 4096, in turns,
+   each precision@10 >= 0.99; ``bench_torch.py``'s count still 4096 at B
+   2048 and ``[bench]``'s sweeps still 77), ``[scale:1m]``
+   (``scale_1m_torch.measure`` at B 256 on ``synthetic_powerlaw(2^20, 8,
+   seed=11)`` with the automatic count: recall@10 >= 0.99 against the
+   power method, itself within 1e-5 of a float64 scipy iteration on the
+   same 4 sources; whole-graph rows of mass within 1e-4 of 1, holding the
+   oracle's top-10 on those sources and within relative error eps of it
+   above 1/n; walks of mass 1; peak memory) and ``[occupancy]``
+   (``ring_occupancy_torch`` on the bench graph at B 64: the coverage
+   curve, and the node engine on a 2x4 mesh of the card repeated, dense
+   against frontier at 16 and 64 of 64 blocks, full capacity equal to
+   dense bit for bit), every K3 launch
+   made in a call ``HeldK3(single=True)`` holds; then ``[scale:1m:k3]``
+   (K3 at the 1M tail's shape on 16 columns against its plain version, bit
+   for bit, with ``embedding_bag`` and the bound). The phases print their
+   wall.
 
 Launch counts are reset before the serving path (7) and read after it,
 and again before and after the serving layer (9), the protocol path (10),
@@ -193,14 +214,15 @@ the walk path (11), the weighted path and the store path (12) and the
 mesh path (13: reset after the single-device references, read before
 ``[mesh:dryrun]``, and equal to the sum of the mesh engines' own counts)
 and the mesh protocol path (14: after its single-device references,
-before ``[mesh:scaling]``);
+before ``[mesh:scaling]``) and the scale path (15: after
+``[hubs:constants]``, before ``[scale:1m:k3]``);
 a reset also forgets the probe, so each path runs K0 once before its
 first hand kernel. The
 weighted path must launch K3 only in its coefficient mode, and never its
 plain version; the mesh path must launch K3 in both modes. The last three
-lines are the kernels' JSON record (``launches`` summed over the eight
-paths, K3's ``mesh`` and ``mesh_protocol`` entries with those paths'
-own;
+lines are the kernels' JSON record (``launches`` summed over the nine
+paths, K3's ``mesh``, ``mesh_protocol`` and ``scale`` entries with those
+paths' own;
 ``row_gather`` is a
 microbenchmark, as P1-P4 were on the TPU, so no path launches it; ``ms``,
 ``plain_ms``, ``library_ms``, ``bound_ms`` and ``bound_by`` at one shape
@@ -585,7 +607,8 @@ def library_times(label, library, want, ms, split, launches, calls,
 
 
 def scipy_power_method(g, sources, alpha, iters=ITERS) -> np.ndarray:
-    """Float64 power iteration with dangling mass to the source."""
+    """Float64 power iteration with dangling mass to the source, every
+    source a column of one ``[n, B]`` state."""
     import scipy.sparse as sp
 
     n = g.n
@@ -593,20 +616,21 @@ def scipy_power_method(g, sources, alpha, iters=ITERS) -> np.ndarray:
     dst = g.edge_dst[: g.m].cpu().numpy()
     deg = g.out_deg[:n].cpu().numpy().astype(np.float64)
     inv = np.where(deg > 0, 1.0 / np.maximum(deg, 1), 0.0)
-    P = sp.coo_matrix((inv[src], (src, dst)), shape=(n, n)).tocsr()
+    pt = sp.coo_matrix((inv[src], (dst, src)), shape=(n, n)).tocsr()
     dangling = deg == 0
+    cols = np.arange(len(sources))
+    rows = np.asarray(sources, np.int64)
+    p = np.zeros((n, len(sources)))
+    r = np.zeros((n, len(sources)))
+    r[rows, cols] = 1.0
+    for _ in range(iters):
+        p += alpha * r
+        rem = (1 - alpha) * r
+        dm = rem[dangling].sum(axis=0)
+        r = pt @ rem
+        r[rows, cols] += dm
     out = np.zeros((len(sources), g.n_pad))
-    for i, s in enumerate(sources):
-        p = np.zeros(n)
-        r = np.zeros(n)
-        r[int(s)] = 1.0
-        for _ in range(iters):
-            p += alpha * r
-            rem = (1 - alpha) * r
-            dm = rem[dangling].sum()
-            r = rem @ P
-            r[int(s)] += dm
-        out[i, :n] = p
+    out[:, :n] = p.T
     return out
 
 
@@ -2847,13 +2871,23 @@ class HeldK3:
     chunk or non-empty ring block; the power method one launch an
     iteration on a sparse graph. ``got`` and ``want`` add up the held
     calls, ``bad`` names each call whose counts differ; a call made inside
-    a held call is not held again."""
+    a held call is not held again.
 
-    def __init__(self):
+    ``single=True`` also holds the single-device loops and engines of the
+    scale path: FORA's annealed loop and ``residual_propagate`` (their
+    sweeps rounded up to a host read), the forward push
+    (``loop_sweeps``), each one launch a sweep unless the graph's dense
+    operator carries a push without a hub split; ``NodeShardedForaTopk``
+    (its sweeps rounded up to a host read, times one launch a non-empty
+    ring block of every data row); and ``ring_occupancy_torch``'s
+    coverage loop (one launch a sweep)."""
+
+    def __init__(self, single: bool = False):
         self.calls = self.got = self.want = 0
         self.bad: list[str] = []
         self._undo = []
         self._depth = 0
+        self.single = single
 
     def __enter__(self):
         from ppr_tpu_torch.models import power_method
@@ -2891,7 +2925,42 @@ class HeldK3:
                 (power_method, "power_method_batch", lambda a, kw, res:
                  0 if a[0].has_dense else power_iters(a, kw))):
             self._patch(owner, name, want)
+        if self.single:
+            self._patch_single()
         return self
+
+    def _patch_single(self):
+        import ring_occupancy_torch
+        from ppr_tpu_torch.models import fora
+        from ppr_tpu_torch.parallel.node_sharded_fora import \
+            NodeShardedForaTopk
+
+        def read_rounds(n):
+            return -(-int(n) // fora.CHECK_EVERY) * fora.CHECK_EVERY
+
+        def per_sweep(g, hs):
+            return 0 if hs is None and g.has_dense else 1
+
+        def ring_blocks(eng, k, kcap):
+            _, shards = eng._program(k, kcap)
+            return sum(bl.src is not None for row in shards for sh in row
+                       for bl in sh.blocks)
+
+        for owner, name, want in (
+                (fora, "annealed_topk_propagate", lambda a, kw, res:
+                 min(read_rounds(res[2]), fora.MAX_TOPK_SWEEPS)
+                 * per_sweep(a[0], kw.get("hs"))),
+                (fora, "residual_propagate", lambda a, kw, res:
+                 min(read_rounds(res[2]), kw.get("max_iters", 400))
+                 * per_sweep(a[0], kw.get("hs"))),
+                (fora, "forward_push_sweeps", lambda a, kw, res:
+                 min(loop_sweeps(res[2]), kw.get("max_sweeps", 10_000))
+                 * per_sweep(a[0], None)),
+                (NodeShardedForaTopk, "_run", lambda a, kw, res:
+                 read_rounds(res[3]) * ring_blocks(a[0], a[2], a[3])),
+                (ring_occupancy_torch, "dense_coverage", lambda a, kw, res:
+                 res[1]["sweeps"])):
+            self._patch(owner, name, want)
 
     def _patch(self, owner, name, want):
         orig = getattr(owner, name)
@@ -3284,6 +3353,229 @@ def mesh_protocol_path(dev, ds, sources, oracle) -> dict:
     return launches, out
 
 
+def hub_constants_phase(g) -> dict:
+    """``[hubs:constants]``: the automatic hub count's two prices measured
+    at ``REF_BATCH`` on the bench graph (``hub_knee_torch.measure_prices``)
+    beside the constants in ``ops/hub_split.py``; each within 2x."""
+    import hub_knee_torch
+    from ppr_tpu_torch.ops import hub_split as hsm
+
+    t0 = time.perf_counter()
+    pr = hub_knee_torch.measure_prices(g, hsm.REF_BATCH)
+    tail = pr["tail_ns_per_edge"] / hsm.TAIL_NS_PER_EDGE
+    col = pr["hbm_gbps"] / hsm.HUB_COLUMN_GBPS
+    print(f"[hubs:constants] B={hsm.REF_BATCH}: K3 "
+          f"{pr['tail_ns_per_edge']:.4f} ns an edge over {pr['m_tail']} tail "
+          f"edges ({pr['tail_ms']:.4f} ms, replays, L2 flushed) against "
+          f"TAIL_NS_PER_EDGE {hsm.TAIL_NS_PER_EDGE} ({tail:.3f}x); one more "
+          f"bf16 hub column {pr['col_ns']:.2f} ns = {pr['hbm_gbps']:.1f} GB/s"
+          f" (torch.mm at H {' and '.join(pr['mm_ms'])}: "
+          f"{', '.join(f'{v:.4f}' for v in pr['mm_ms'].values())} ms) "
+          f"against HUB_COLUMN_GBPS {hsm.HUB_COLUMN_GBPS} ({col:.3f}x); "
+          f"wall {time.perf_counter() - t0:.1f} s")
+    for name, ratio in (("tail_ns_per_edge", tail), ("hbm_gbps", col)):
+        check(0.5 <= ratio <= 2.0, f"[hubs:constants] the measured "
+              f"{name} is {ratio:.3f}x the committed constant, not within 2x")
+    return pr
+
+
+def scale_path(dev, ds, bench_sweeps: int) -> tuple[dict, dict]:
+    """The automatic hub count and the 1M cell: after
+    ``[hubs:constants]``, one launch window, every K3 launch in it held
+    call by call (``HeldK3(single=True)``):
+
+    * ``[hubs:auto]``: ``auto_num_hubs`` with the shipped prices on the
+      bench graph; at B 512 one call of ``compute_topk_ids_batch`` at the
+      rule's count and one at 4096, in turns after a warm-up each: qps,
+      sweeps, precision@10 against the power method (tie tol eps/n), each
+      >= 0.99; ``bench_torch.hub_count`` still 4096 at B 2048 and the
+      ``[bench]`` call's sweeps still 77;
+    * ``[scale:1m]``: ``scale_1m_torch.measure`` at B 256 (the automatic
+      hub count): recall@10 >= 0.99 against ``power_method_batch``, itself
+      within 1e-5 of a float64 scipy power iteration on the same 4
+      sources (the driver's own, ``record["acc_sources"]``); whole-graph
+      rows of mass within 1e-4 of 1, and on those 4 sources the oracle's
+      top-10 within each row's (precision@10 1, ties eps/n) and every
+      entry above 1/n within relative error eps of it; walks of mass 1
+      within 1e-6; peak memory;
+    * ``[occupancy]``: ``ring_occupancy_torch`` on the bench graph at B 64:
+      Part A's coverage, Part B dense against frontier at 16 and 64 of 64
+      blocks on a 2x4 mesh of the card repeated, full capacity equal to
+      dense bit for bit.
+
+    Then, outside the window, ``[scale:1m:k3]``: K3 at the 1M tail's shape
+    on a 16-column slice against its plain version, bit for bit. Returns
+    the window's launches and K3's record at that shape."""
+    import torch
+
+    import bench_torch
+    import ring_occupancy_torch
+    import scale_1m_torch
+    from ppr_tpu_torch.models import power_method
+    from ppr_tpu_torch.models.fora import ForaTopk
+    from ppr_tpu_torch.ops.hub_split import auto_num_hubs, build_hub_split
+    from ppr_tpu_torch.parallel.mesh import make_mesh
+
+    wall0 = time.perf_counter()
+    prices = hub_constants_phase(ds.graph)
+    bf16 = torch.bfloat16
+    reset_launches()
+    with HeldK3(single=True) as held:
+        # --- [hubs:auto] --------------------------------------------------
+        t0 = time.perf_counter()
+        mark = held.mark()
+        rule = auto_num_hubs(ds.graph, bf16)
+        sources = np.random.default_rng(1).integers(0, ds.n, 512)
+        oracle = power_method.power_method_batch(
+            ds.graph, sources[:32], ALPHA, ITERS).cpu().numpy()
+        tol = EPS / ds.n
+        engines = {}
+        for h in (rule, 4096):
+            eng = ForaTopk(ds, ALPHA, K, seed=7, push="none")
+            eng.enable_hub_split(h, dtype=bf16)
+            eng.compute_topk_ids_batch(sources, K, EPS)      # warm-up
+            engines[h] = eng
+        rows = {}
+        for h, eng in engines.items():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            vals, ids = eng.compute_topk_ids_batch(sources, K, EPS)
+            dt = time.perf_counter() - t1
+            prec = precision(oracle, tie_tolerant_ids(vals, ids, 32, tol))
+            rows[h] = {"hubs": h, "qps": len(sources) / dt,
+                       "ms": dt * 1e3, "sweeps": eng.last_iters,
+                       "precision": prec,
+                       "tail_edges": eng.hub_split.m_tail}
+            mark_rule = " (the rule)" if h == rule else ""
+            print(f"[hubs:auto] B=512 H={h}{mark_rule}: "
+                  f"{dt * 1e3:.1f} ms = {len(sources) / dt:.1f} qps, "
+                  f"sweeps {eng.last_iters}, tail edges "
+                  f"{eng.hub_split.m_tail}, precision@10 {prec:.4f}")
+            check(prec >= 0.99, f"[hubs:auto] H={h} precision@10 {prec}")
+        del engines
+        torch.cuda.empty_cache()
+        bench_hubs = bench_torch.hub_count(2048)
+        print(f"[hubs:auto] the rule's count on the bench graph {rule}; "
+              f"bench_torch's count at B 2048 {bench_hubs}, at B 512 "
+              f"{bench_torch.hub_count(512)!r}; [bench] sweeps "
+              f"{bench_sweeps}; wall {time.perf_counter() - t0:.1f} s")
+        check(bench_hubs == 4096, "[hubs:auto] bench_torch's rule left 4096 "
+              "hubs at B 2048")
+        check(bench_sweeps == 77, f"[hubs:auto] [bench] took {bench_sweeps} "
+              "sweeps, not 77")
+        held.hold("hubs:auto", mark)
+
+        # --- [scale:1m] ---------------------------------------------------
+        t0 = time.perf_counter()
+        mark = held.mark()
+        args = scale_1m_torch.parse_args(["--batch", "256"])
+        ds1m = scale_1m_torch.build(args, dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        rec, oracle1m = scale_1m_torch.measure(args, ds1m)
+        g1m = ds1m.graph
+        acc = np.asarray(rec["acc_sources"])
+        exact = scipy_power_method(g1m, acc, ALPHA)
+        err = float(np.abs(oracle1m - exact).max())
+        mass_err = max(abs(m - 1.0) for m in rec["mass_rows"])
+        print(f"[scale:1m] synthetic_powerlaw(2^20, 8, seed=11): n={g1m.n} "
+              f"m={g1m.m}, built ({rec['builder']}) and placed in "
+              f"{build_s:.1f} s; top-k B=256: {rec['fora_topk_qps']:.1f} qps,"
+              f" {rec['topk_sweeps']} sweeps ({rec['topk_path']}), "
+              f"{rec['auto_hubs']} auto hubs carrying "
+              f"{100 * rec['hub_edge_cover']:.1f}% of the edges, peak "
+              f"{rec['topk_peak_gb']:.2f} GB, recall@10 "
+              f"{rec['recall_at_10']:.4f} ({rec['recall_dense_rows']} rows "
+              f"recomputed densely)")
+        print(f"[scale:1m] oracle power_method_batch vs float64 scipy on the "
+              f"{len(acc)} recall sources: max abs err {err:.3e}")
+        print(f"[scale:1m] whole-graph B={args.wg_batch}: "
+              f"{rec['fora_whole_graph_qps']:.3f} qps, {rec['wg_push_rounds']}"
+              f" push rounds, row mass within {mass_err:.3e} of 1, on the "
+              f"{rec['wg_checked_rows']} recall sources precision@10 "
+              f"{rec['wg_precision_at_10']:.4f} and relative error "
+              f"{rec['wg_rel_err_above_delta']:.3e} above 1/n against the "
+              f"oracle, peak {rec['wg_peak_gb']:.2f} GB; walks "
+              f"{rec['walks_per_sec']:.4g} a second over {args.walkers} "
+              f"walkers, mass {rec['walks_mass']:.9f}; wall "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(err <= 1e-5, f"[scale:1m] oracle error {err} > 1e-5")
+        check(rec["recall_at_10"] >= 0.99,
+              f"[scale:1m] recall@10 {rec['recall_at_10']} < 0.99")
+        check(rec["wg_finite"] and mass_err <= 1e-4,
+              f"[scale:1m] whole-graph row mass off by {mass_err}")
+        check(rec["wg_checked_rows"] == args.acc_queries
+              and rec["wg_precision_at_10"] == 1.0,
+              f"[scale:1m] whole-graph precision@10 "
+              f"{rec['wg_precision_at_10']} on {rec['wg_checked_rows']} rows")
+        check(rec["wg_rel_err_above_delta"] <= EPS,
+              f"[scale:1m] whole-graph relative error "
+              f"{rec['wg_rel_err_above_delta']} > eps {EPS} above 1/n")
+        check(abs(rec["walks_mass"] - 1.0) <= 1e-6,
+              f"[scale:1m] walks mass {rec['walks_mass']}")
+        held.hold("scale:1m", mark)
+
+        # --- [occupancy] --------------------------------------------------
+        t0 = time.perf_counter()
+        mark = held.mark()
+        deg = ds.graph.out_deg[: ds.n].cpu().numpy()
+        occ_src = np.random.default_rng(0).choice(
+            np.nonzero(deg > 0)[0], size=64, replace=False).astype(np.int32)
+        _, agg = ring_occupancy_torch.dense_coverage(ds, occ_src, EPS, k=K)
+        mesh = make_mesh(8, data=2, graph=4, devices=[dev] * 8)
+        infl = ring_occupancy_torch.empirical_inflation(
+            ds, occ_src, EPS, mesh, k=K, orders=("degree",), caps=(16, 64))
+        print(f"[occupancy] bench graph B=64: Part A {agg['sweeps']} sweeps, "
+              f"occupancy max {agg['occupancy_max']:.3f}, coverage(1/8) "
+              f"mass-weighted {agg['coverage_0.1250_mass_weighted']:.3f}, "
+              f"(1/4) {agg['coverage_0.2500_mass_weighted']:.3f}; Part B "
+              f"(2x4 of the card) dense ring {infl['dense_sweeps']} sweeps, "
+              f"oracle err {infl['dense_oracle_err']:.2e}; " + ", ".join(
+                  f"C={f['capacity_blocks']}/64: {f['sweeps']} sweeps "
+                  f"({f['sweep_inflation']:.2f}x), ids match dense "
+                  f"{f['ids_match_dense']}, values equal dense "
+                  f"{f['values_equal_dense']}, oracle err "
+                  f"{f['oracle_err']:.2e}" for f in infl["frontier"])
+              + f"; wall {time.perf_counter() - t0:.1f} s")
+        full = next(f for f in infl["frontier"]
+                    if f["capacity_blocks"] == 64)
+        check(full["values_equal_dense"] and full["ids_match_dense"]
+              and full["sweeps"] == infl["dense_sweeps"],
+              "[occupancy] frontier at full capacity differs from the dense "
+              "ring")
+        check(agg["sweeps"] == infl["dense_sweeps"],
+              f"[occupancy] Part A took {agg['sweeps']} sweeps, the dense "
+              f"ring {infl['dense_sweeps']}")
+        held.hold("occupancy", mark)
+    launches = read_launches()
+    print(f"[scale] launches on the path: {launches}; {held.calls} held "
+          f"calls made K3 {held.got}, their sweeps x launches a sweep "
+          f"{held.want}")
+    check(not held.bad, f"[scale] K3 launches differ from sweeps x launches "
+          f"a sweep: {held.bad[:5]}")
+    check(launches["k3"] == held.got and launches["k3"] > 0,
+          "[scale] K3 launched outside the held calls")
+    check(launches["k0"] == 1, "[scale] K0 did not run once")
+
+    # --- [scale:1m:k3], outside the window ---------------------------------
+    hs1m = build_hub_split(g1m, "auto", dtype=bf16)
+    k3 = k3_cases(dev, [dict(label="1M tail, 16 columns", n_rows=g1m.n_pad,
+                             src=hs1m.tail_src, ptr=hs1m.tail_ptr, b=16,
+                             cold=True)], tag="scale:1m:k3")
+    del hs1m, ds1m, g1m
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - wall0
+    print(f"[scale] the new phases' wall: {wall:.1f} s")
+    return launches, {"prices": prices, "hubs_auto": list(rows.values()),
+                      "scale_1m": rec, "occupancy": {"aggregate": agg,
+                                                     "empirical": infl},
+                      "k3_1m_tail": {key: k3[key] for key in (
+                          "max_abs_err", "ms", "plain_ms", "bound_ms",
+                          "bound_by", "library_ms", "host_us", "device_ms",
+                          "shapes")},
+                      "wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -3526,13 +3818,15 @@ def main() -> int:
     # --- 14. the protocol on a mesh of the card ----------------------------
     mesh_proto, mesh_proto_out = mesh_protocol_path(dev, ds, sources, oracle)
     store = neostore_path(dev)
+    # --- 15. the automatic hub count and the 1M cell ------------------------
+    scale, scale_out = scale_path(dev, ds, sweeps)
     launches = {k: serving[k] + layer[k] + protocol[k] + walks[k]
                 + weighted[k] + mesh[k] + mesh_proto[k] + store[k]
-                for k in serving}
+                + scale[k] for k in serving}
     print(f"[launches] serving path {serving}, serving layer {layer}, "
           f"protocol path {protocol}, walk path {walks}, weighted path "
           f"{weighted}, mesh path {mesh}, mesh protocol path {mesh_proto}, "
-          f"store path {store}")
+          f"store path {store}, scale path {scale}")
     source = "ppr_tpu_torch/csrc/dense_power.cu"
     print(json.dumps({"kernels": [{
         "name": "dense_power_iterations",
@@ -3613,6 +3907,7 @@ def main() -> int:
                      "shapes", "engines")}},
         "mesh_protocol": {"launches": mesh_proto["k3"],
                           **mesh_proto_out},
+        "scale": {"launches": scale["k3"], **scale_out},
     }, {
         "name": "row_gather",
         "route": "cuda",

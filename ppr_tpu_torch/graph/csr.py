@@ -259,6 +259,28 @@ def build_graph(
     ), device=device)
 
 
+def graph_from_scipy(mat, **kwargs) -> Graph:
+    """Build from a ``scipy.sparse`` matrix where ``mat[i, j] != 0`` is edge
+    i->j; ``kwargs`` go to :func:`build_graph` (``device=None`` is the
+    card)."""
+    coo = mat.tocoo()
+    return build_graph(coo.row, coo.col, n=mat.shape[0], **kwargs)
+
+
+def summarize(g: Graph) -> dict:
+    """Host-side summary (for logs and harness headers)."""
+    out_deg = g.out_deg[: g.n].cpu().numpy()
+    return {
+        "n": g.n,
+        "m": g.m,
+        "n_pad": g.n_pad,
+        "m_pad": g.m_pad,
+        "dangling": int((out_deg == 0).sum()),
+        "max_out_deg": int(out_deg.max()) if g.n else 0,
+        "dense": g.has_dense,
+    }
+
+
 def csr_numpy(src: np.ndarray, dst: np.ndarray, n_pad: int):
     """The numpy path of the CSR, ``(order, indptr, dst_s, src_s, out_deg,
     in_deg)``: the stable argsort by source of the JAX package's

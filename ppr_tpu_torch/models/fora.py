@@ -346,6 +346,13 @@ def _cohort_compact(p, r, src_onehot, delta, sources, sel):
                  for x in (p, r, src_onehot, delta, sources))
 
 
+def topk_kcap(k: int, n_pad: int, kcap: int | None = None) -> int:
+    """The top-K window the serving path selects on the device: ``kcap``
+    when given, else ``max(4k, k+32)``, room for the reference's tie
+    expansion; at most ``n_pad``."""
+    return min(int(kcap) if kcap else max(4 * k, k + 32), n_pad)
+
+
 def _device_topk_epilogue(g: Graph, sources: torch.Tensor, p: torch.Tensor,
                           src_onehot: torch.Tensor, kcap: int):
     """Dangling-source short-circuit + top-(kcap) selection on the device;
@@ -469,9 +476,11 @@ class _ForaCostModel:
         bytes_ = m_eff * max(batch, 1) * 4
         return max(1, -(-bytes_ // budget))
 
-    def enable_hub_split(self, num_hubs: int, dtype=None) -> None:
-        """Use the dense-hub hybrid push with ``num_hubs`` hubs (f32 hub
-        product unless ``dtype=torch.bfloat16``)."""
+    def enable_hub_split(self, num_hubs: int | str = "auto",
+                         dtype=None) -> None:
+        """Use the dense-hub hybrid push with ``num_hubs`` hubs, by default
+        the automatic count (:func:`~..ops.hub_split.auto_num_hubs`); the
+        hub product is f32 unless ``dtype=torch.bfloat16``."""
         kwargs = {} if dtype is None else {"dtype": dtype}
         self.hub_split = build_hub_split(self.graph, num_hubs, **kwargs)
 
@@ -677,8 +686,8 @@ class ForaTopk(_ForaCostModel, PPRAlgorithm):
     def compute_topk_ids_batch(self, sources: np.ndarray, k: int, param, *,
                                kcap: int | None = None):
         """Serving path: ``(values [B, K], ids [B, K])`` numpy, selected on
-        the device. K = ``kcap`` (default ``min(max(4k, k+32), n_pad)``)
-        leaves room for the reference's tie semantics."""
+        the device. K = ``kcap`` (default :func:`topk_kcap`) leaves room
+        for the reference's tie semantics."""
         k = int(k) if k and k > 0 else self.k
         g = self.graph
         if len(sources) == 0:
@@ -687,7 +696,7 @@ class ForaTopk(_ForaCostModel, PPRAlgorithm):
         result, sources_t, src_onehot = self._compute_topk_device(
             sources, k, param
         )
-        kcap = min(int(kcap) if kcap else max(4 * k, k + 32), g.n_pad)
+        kcap = topk_kcap(k, g.n_pad, kcap)
         vals, ids = _device_topk_epilogue(g, sources_t, result, src_onehot,
                                           kcap)
         return vals.cpu().numpy()[:b], ids.cpu().numpy()[:b]
@@ -714,7 +723,7 @@ class ForaTopk(_ForaCostModel, PPRAlgorithm):
         if b == 0:
             return
         eps = float(param) * 0.5      # eps' = eps/2 (Fora_Topk.java:110)
-        kcap = min(int(kcap) if kcap else max(4 * k, k + 32), g.n_pad)
+        kcap = topk_kcap(k, g.n_pad, kcap)
         if not self._skip_push(eps, b):
             vals, ids = self.compute_topk_ids_batch(sources, k, param,
                                                     kcap=kcap)

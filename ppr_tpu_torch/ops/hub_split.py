@@ -20,9 +20,11 @@ f32 — the same arithmetic.
 
 A weighted graph has no hub split: the hub matrix holds edge
 multiplicities scaled by ``1/d_v``, and :func:`build_hub_split` refuses
-one, as the JAX package does. ``auto_num_hubs`` is not ported: its
-constants were measured on a TPU v5e (ROADMAP.md, queue 1, item 4).
-Callers pass an explicit hub count.
+one, as the JAX package does.
+
+``num_hubs="auto"`` takes :func:`auto_num_hubs`, the JAX package's rule
+with prices measured on the H100 in place of its TPU v5e ones
+(``hub_knee_torch.py --constants``).
 
 :func:`push_out_hybrid_t` (node-major) is the propagation loops' push;
 :func:`push_out_hybrid` is its batch-major form, the JAX package's, which
@@ -41,6 +43,52 @@ from ..graph.csr import Graph, _segment_ptr
 from .spmv import _safe_inv_deg, gather_segment_sum
 
 
+#: K3's device time an edge over the bench graph's tail
+#: (``synthetic_powerlaw(65536, 16, seed=42)``, 4096 hubs, 323,184 tail
+#: edges) at B = ``REF_BATCH``, by CUDA-graph replays with L2 flushed
+#: (``hub_knee_torch.py --constants``; NVIDIA H100 80GB HBM3, 700.00 W)
+TAIL_NS_PER_EDGE = 0.4284
+#: ``n_pad * 2 / col_ns`` in GB/s, ``col_ns`` the time one more column adds
+#: to the bf16 hub product ``[REF_BATCH, n_pad] x [n_pad, H]`` with f32
+#: output, the slope over H 2048 -> 4096 by CUDA-graph replays, same
+#: graph and script (NVIDIA H100 80GB HBM3, 700.00 W)
+HUB_COLUMN_GBPS = 1635.5
+#: the batch both prices were measured at: the middle of the range where
+#: ``"auto"`` is used (``bench_torch.py`` below B 1024, the serving rungs)
+REF_BATCH = 512
+#: the JAX package's cap on the hub matrix
+MAX_MATRIX_BYTES = 4 << 30
+
+
+def auto_num_hubs(g: Graph, dtype: torch.dtype = torch.float32, *,
+                  tail_ns_per_edge: float = TAIL_NS_PER_EDGE,
+                  hbm_gbps: float = HUB_COLUMN_GBPS,
+                  max_matrix_bytes: int = MAX_MATRIX_BYTES) -> int:
+    """The JAX package's marginal-benefit hub count
+    (``ppr_tpu/ops/hub_split.py:47-69``): node v is a hub while the sparse
+    cost of its in-edges, ``in_deg(v) * tail_ns_per_edge``, exceeds the
+    cost of one more dense column, ``col_ns = n_pad * itemsize /
+    hbm_gbps``. The count is capped so that the matrix stays under
+    ``max_matrix_bytes`` and rounded down to a multiple of 128, at least
+    128.
+
+    On the card the names mean: ``tail_ns_per_edge`` is K3's time an edge
+    of the tail at B ``REF_BATCH``; ``hbm_gbps`` is not the memory's rate
+    but the effective rate of one more hub column of the bf16 product at
+    that batch, which is bound by its operations there, not by reading
+    the column (both measured on an NVIDIA H100 80GB HBM3 at 700.00 W; see
+    ``TAIL_NS_PER_EDGE`` and ``HUB_COLUMN_GBPS``). Both prices grow with
+    B; the rule takes them at one batch and does not follow B. As in the
+    JAX package it only needs them to within ~2x."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    col_ns = g.n_pad * itemsize / hbm_gbps   # bytes / (GB/s) == ns
+    min_deg = max(col_ns / tail_ns_per_edge, 1.0)
+    in_deg = g.in_deg[: g.n].cpu().numpy()
+    h = int((in_deg > min_deg).sum())
+    h = min(h, max_matrix_bytes // max(g.n_pad * itemsize, 1), g.n)
+    return max(128, (h // 128) * 128) if h else 128
+
+
 @dataclasses.dataclass(frozen=True)
 class HubSplit:
     hub_ids: torch.Tensor      # int32[H] node ids (largest in-degree)
@@ -53,18 +101,22 @@ class HubSplit:
     dtype: torch.dtype         # operand type of the hub product
 
 
-def build_hub_split(g: Graph, num_hubs: int = 512,
+def build_hub_split(g: Graph, num_hubs: int | str = 512,
                     dtype: torch.dtype = torch.float32) -> HubSplit:
-    """Host-side construction from the destination-sorted edge view."""
+    """Construction from the destination-sorted edge view; ``num_hubs=
+    "auto"`` takes :func:`auto_num_hubs` with its card-measured prices.
+
+    The hub matrix is written on the graph's device from each (source,
+    hub) pair's edge count, so no ``[n_pad, H]`` f32 matrix is made on the
+    host (4.3 GB at n = 2^20 and 1024 hubs). The counts are exact in f32,
+    and the bf16 matrix rounds them as the JAX package's cast of its f32
+    matrix does."""
     if g.weighted:
         raise NotImplementedError("hub split supports uniform graphs")
-    if num_hubs == "auto":
-        raise NotImplementedError(
-            "auto_num_hubs runs on TPU v5e constants and is not ported; "
-            "pass an explicit hub count (ROADMAP.md, queue 1, item 4)"
-        )
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"hub dtype must be float32 or bfloat16, got {dtype}")
+    if num_hubs == "auto":
+        num_hubs = auto_num_hubs(g, dtype)
     num_hubs = int(min(num_hubs, g.n))
     in_deg = g.in_deg[: g.n].cpu().numpy()
     hub_ids = np.argsort(-in_deg, kind="stable")[:num_hubs].astype(np.int32)
@@ -78,8 +130,9 @@ def build_hub_split(g: Graph, num_hubs: int = 512,
 
     to_hub = is_hub[dst]
     # raw multiplicities: the consumer scales by 1/d_v first
-    hub_matrix = np.zeros((g.n_pad, num_hubs), np.float32)
-    np.add.at(hub_matrix, (src[to_hub], hub_pos[dst[to_hub]]), 1.0)
+    cells, counts = np.unique(
+        src[to_hub].astype(np.int64) * num_hubs + hub_pos[dst[to_hub]],
+        return_counts=True)
 
     t_src, t_dst = src[~to_hub], dst[~to_hub]
     m_tail = int(t_src.size)
@@ -91,9 +144,12 @@ def build_hub_split(g: Graph, num_hubs: int = 512,
 
     dev = g.device
     store = dtype if dev.type == "cuda" else torch.float32
+    hub_matrix = torch.zeros((g.n_pad, num_hubs), dtype=store, device=dev)
+    hub_matrix.view(-1)[torch.as_tensor(cells, device=dev)] = \
+        torch.as_tensor(counts.astype(np.float32), device=dev).to(store)
     return HubSplit(
         hub_ids=torch.as_tensor(hub_ids, device=dev),
-        hub_matrix=torch.as_tensor(hub_matrix, device=dev).to(store),
+        hub_matrix=hub_matrix,
         tail_src=torch.as_tensor(tail_src, device=dev),
         tail_dst=torch.as_tensor(tail_dst, device=dev),
         tail_ptr=torch.as_tensor(_segment_ptr(tail_dst, g.n_pad), device=dev),

@@ -11,6 +11,19 @@ tie-expanded id sets, not orders. Tie expansion is host numpy.
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def kth_value(p: torch.Tensor, k: int) -> torch.Tensor:
+    """k-th largest value of ``p`` along the last axis (no support
+    filtering)."""
+    return torch.topk(p, k, dim=-1).values[..., -1]
+
+
+def device_top_k(p: torch.Tensor, k: int):
+    """``(values, indices)`` of the k largest entries of each row, on
+    ``p``'s device; indices are int64 (``lax.top_k``'s are int32)."""
+    return torch.topk(p, k, dim=-1)
 
 
 def topk_ids_with_ties(values: np.ndarray, k: int, *, support=None,
@@ -48,3 +61,13 @@ def topk_ids_with_ties_from_pairs(vals_row: np.ndarray, ids_row: np.ndarray,
         return i
     kth = v[k - 1]
     return i[v >= kth - tol]
+
+
+def kth_ppr(values: np.ndarray, k: int):
+    """Host quickselect-parity helper: the k-th largest, or ``None`` when k
+    is invalid (k <= 0 or k > len(values)), as Algo_Util.java:39-53
+    returns null."""
+    values = np.asarray(values)
+    if k <= 0 or k > values.size:
+        return None
+    return float(np.partition(values, -k)[-k])

@@ -190,6 +190,23 @@ def two_host_prediction(g: Graph, *, spmv_ns_per_edge: float,
     }
 
 
+def rank_frontier(g: Graph, candidates: list[dict], *, batch: int,
+                  s_graph: int, spmv_ns_per_edge: float,
+                  link_bytes_per_s: float) -> list[dict]:
+    """The measured (capacity, inflation) points of ``candidates`` (a
+    ring-occupancy artifact's ``empirical.frontier`` entries), fastest
+    modelled sweep first: a frontier-compacted bf16 ring over ``s_graph``
+    devices (``ppr_tpu/parallel/comm_model.py:364-378``)."""
+    def t_sweep(f):
+        return predict_sweep(
+            g, engine="node_sharded", s_graph=s_graph, batch=batch,
+            payload_bytes=2, capacity_frac=f["capacity_frac"],
+            sweep_inflation=f["sweep_inflation"],
+            spmv_ns_per_edge=spmv_ns_per_edge,
+            link_bytes_per_s=link_bytes_per_s).t_sweep_s
+    return sorted(candidates, key=t_sweep)
+
+
 def measure_breakdown(mesh: Mesh, g: Graph, *, alpha: float = 0.15,
                       batch: int = 64, num_sweeps: int = 16,
                       iters: int = 5) -> dict:
@@ -290,8 +307,12 @@ def measure_link_bytes_per_s(n_pad: int, b_local: int,
 
 def main(argv=None) -> int:
     """``python -m ppr_tpu_torch.parallel.comm_model``: the bytes a sweep
-    of each engine, the rates measured on this machine and, when a link
-    was measured, the two-host prediction, as one JSON object."""
+    of each engine, K3's rate measured on this machine, the link's
+    (measured or given) and, when a link rate is known, the two-host
+    prediction, as one JSON object. ``--frontier-json`` adds the
+    frontier-compacted ring priced at the measured (capacity, inflation)
+    point of a ring-occupancy artifact (``ring_occupancy_torch.py``)
+    whose modelled sweep is fastest."""
     import argparse
     import json
 
@@ -311,6 +332,17 @@ def main(argv=None) -> int:
                          "two or more are visible, else on a 2x2 mesh of "
                          "the one device repeated")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--link-bytes-per-s", type=float, default=None,
+                    help="the link's rate (default: measured between two "
+                         "cards; none with fewer)")
+    ap.add_argument("--frontier-json", default=None,
+                    help="ring-occupancy artifact (ring_occupancy_torch."
+                         "py); the prediction adds a frontier-compacted "
+                         "ring priced at the measured capacity and "
+                         "inflation that minimise the modelled sweep")
+    ap.add_argument("--frontier-graph", default=None,
+                    help="graph key inside --frontier-json (default: "
+                         "synth:<n>x<deg>@<seed>)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -334,13 +366,28 @@ def main(argv=None) -> int:
                 g.n_pad, args.batch, s, 0.25, payload_bytes=2)}
         for s in (args.chips_per_host, 2 * args.chips_per_host)}
     ns_edge = measure_spmv_ns_per_edge(g, args.batch)
-    link = (measure_link_bytes_per_s(g.n_pad, args.batch)
-            if dev.type == "cuda" else None)
+    link = args.link_bytes_per_s
+    if link is None and dev.type == "cuda":
+        link = measure_link_bytes_per_s(g.n_pad, args.batch)
     out["spmv_ns_per_edge"] = ns_edge
     out["link_bytes_per_s"] = link
+    frontier = None
+    if args.frontier_json:
+        with open(args.frontier_json) as f:
+            occ = json.load(f)
+        key = args.frontier_graph or f"synth:{args.n}x{args.deg}@{args.seed}"
+        cands = occ["graphs"][key]["empirical"]["frontier"]
+        if link is not None:
+            cands = rank_frontier(
+                g, cands, batch=args.batch,
+                s_graph=2 * args.chips_per_host, spmv_ns_per_edge=ns_edge,
+                link_bytes_per_s=link)
+            frontier = dict(cands[0], source=args.frontier_json,
+                            measured_graph=key)
+        out["frontier_candidates_measured"] = cands
     out["prediction"] = None if link is None else two_host_prediction(
         g, batch=args.batch, chips_per_host=args.chips_per_host,
-        spmv_ns_per_edge=ns_edge, link_bytes_per_s=link)
+        spmv_ns_per_edge=ns_edge, link_bytes_per_s=link, frontier=frontier)
     if args.measure:
         count = torch.cuda.device_count() if dev.type == "cuda" else 0
         mesh = (make_mesh(count) if count >= 2 else

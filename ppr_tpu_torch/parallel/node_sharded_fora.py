@@ -45,7 +45,7 @@ import torch
 
 from ..graph.csr import Graph
 from ..models.fora import (MAX_TOPK_SWEEPS, _loop_constants,
-                           _whole_graph_walk_setup)
+                           _whole_graph_walk_setup, topk_kcap)
 from ..ops.walk import default_max_steps, expand_walkers
 from . import mesh as mesh_mod
 from .mesh import Mesh, make_mesh, psum
@@ -276,7 +276,7 @@ class NodeShardedForaTopk:
             return (np.zeros((0, 0), np.float32), np.zeros((0, 0), np.int64))
         eps = float(param) * 0.5          # eps' = eps/2 (Fora_Topk.java:110)
         sources_p, b = self._pad_batch(sources)
-        kcap = min(int(kcap) if kcap else max(4 * k, k + 32), g.n_pad)
+        kcap = topk_kcap(k, g.n_pad, kcap)
         vals, ids, _, _ = self._run(sources_p, k, kcap, eps)
         return (torch.cat([v.cpu() for v in vals]).numpy()[:b],
                 torch.cat([i.cpu() for i in ids]).numpy()[:b])
@@ -291,7 +291,7 @@ class NodeShardedForaTopk:
         eps = float(param) * 0.5
         sources_p, b = self._pad_batch(sources)
         _, _, p_local, _ = self._run(sources_p, k,
-                                     min(max(4 * k, k + 32), g.n_pad), eps)
+                                     topk_kcap(k, g.n_pad), eps)
         return gather_nodes(p_local).T.numpy()[:b]
 
     def final_state_shard_shape(self, batch: int) -> tuple[int, int]:

@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.fora import MAX_TOPK_SWEEPS, _loop_constants
+from ..models.fora import MAX_TOPK_SWEEPS, _loop_constants, topk_kcap
 from .mesh import Mesh, make_mesh, psum
 from .sharded import EdgeChunk, edge_chunks, onehot_t, run_annealed
 
@@ -191,7 +191,7 @@ class ShardedForaTopk:
             return (np.zeros((0, 0), np.float32), np.zeros((0, 0), np.int64))
         eps = float(param) * 0.5          # eps' = eps/2 (Fora_Topk.java:110)
         sources_p, b = self._pad_batch(sources)
-        kcap = min(int(kcap) if kcap else max(4 * k, k + 32), g.n_pad)
+        kcap = topk_kcap(k, g.n_pad, kcap)
         vals, ids, _, _ = self._run(sources_p, k, kcap, eps)
         return (torch.cat([v.cpu() for v in vals]).numpy()[:b],
                 torch.cat([i.cpu() for i in ids]).numpy()[:b])
@@ -206,5 +206,5 @@ class ShardedForaTopk:
         eps = float(param) * 0.5
         sources_p, b = self._pad_batch(sources)
         _, _, finals, _ = self._run(sources_p, k,
-                                    min(max(4 * k, k + 32), g.n_pad), eps)
+                                    topk_kcap(k, g.n_pad), eps)
         return torch.cat([x.cpu() for x in finals], dim=1).T.numpy()[:b]

@@ -7,7 +7,8 @@ Top-k queries run FORA top-k with device-side selection: the annealed
 propagation loop, or push+walk rounds where FORA's cost model prices walks
 lower; :meth:`PPRService.whole_graph` runs FORA whole-graph.
 ``hub_split=H`` builds the dense-hub hybrid push once, with a bf16 hub
-product unless ``hub_dtype`` says otherwise, and both algorithms use it;
+product unless ``hub_dtype`` says otherwise, and both algorithms use it
+(``hub_split="auto"``: the automatic count, ``ops/hub_split.py``);
 ``calibrate=True`` measures the cost constants on the graph once and gives
 them to both. ``early_exit=True`` stops the annealed loop once every row's
 top-k set is certified final; ``cohort=True`` adds
@@ -50,7 +51,7 @@ class PPRService:
     def __init__(self, dataset: Dataset, alpha: float = 0.15, *,
                  eps: float = 0.5, k: int = 10, seed: int = 0,
                  algorithm: AlgoType = AlgoType.FORA_TOPK,
-                 hub_split: int | None = None, hub_dtype=None,
+                 hub_split: int | str | None = None, hub_dtype=None,
                  calibrate: bool = False, mesh=None,
                  precomputed: tuple | None = None,
                  early_exit: bool = False, mesh_engine: str = "edge",

@@ -55,6 +55,17 @@ class PPRStore:
     def has_batch(self, start: int) -> bool:
         return os.path.exists(self._shard_path(start))
 
+    def write_batch(self, start: int, sources: np.ndarray,
+                    rows: np.ndarray) -> None:
+        """Persist dense rows (one per source) as sparse id/value arrays:
+        each row's positive entries in id order."""
+        ids, vals = [], []
+        for row in np.asarray(rows):
+            nz = np.nonzero(row > 0.0)[0]
+            ids.append(nz)
+            vals.append(row[nz])
+        self.write_batch_ordered(start, sources, ids, vals)
+
     def write_batch_ordered(
         self, start: int, sources: np.ndarray,
         ids_list: list[np.ndarray], vals_list: list[np.ndarray],
@@ -62,9 +73,7 @@ class PPRStore:
         """Persist rows as explicit (ids, vals) sequences, preserving order.
 
         Used by the preprocessing sweep (``models/base.py``), which writes
-        each source's kept entries in column order. (The JAX package's
-        dense-row ``write_batch`` writes the same format; the port has no
-        caller for it yet.)"""
+        each source's kept entries in column order."""
         ptr = [0]
         for ids in ids_list:
             ptr.append(ptr[-1] + len(ids))

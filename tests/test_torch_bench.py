@@ -40,9 +40,15 @@ def test_bench_torch_args_match_bench():
     args = bench_torch.parse_args([])
     assert (args.n, args.deg, args.batch, args.eps, args.k, args.alpha,
             args.cpu_queries, args.acc_queries, args.hub_split) == \
-        (65536, 16, 2048, 0.5, 10, 0.15, 16, 32, 4096)
+        (65536, 16, 2048, 0.5, 10, 0.15, 16, 32, None)
+    # bench.py's rule (bench.py:212-213): 4096 hubs at B >= 1024, else auto
+    assert bench_torch.hub_count(args.batch, args.hub_split) == 4096
+    assert bench_torch.hub_count(1024) == 4096
+    assert bench_torch.hub_count(512) == "auto"
+    assert bench_torch.hub_count(512, 2048) == 2048
     quick = bench_torch.parse_args(["--quick"])
     assert (quick.n, quick.batch, quick.cpu_queries) == (4096, 8, 1)
+    assert bench_torch.hub_count(quick.batch, quick.hub_split) == "auto"
 
 
 def test_bench_torch_needs_a_card(monkeypatch):

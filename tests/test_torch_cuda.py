@@ -1145,3 +1145,62 @@ def test_cli_mesh_on_the_card_matches_cpu(cuda, tmp_path, monkeypatch):
     assert len(rows["cuda"]) == len(rows["cpu"]) == 10
     for a, b in zip(rows["cuda"], rows["cpu"]):
         assert a[0] == b[0] and abs(float(a[-1]) - float(b[-1])) <= 1e-8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hubs", ["auto", 128, 1000])
+def test_hub_split_on_the_card_matches_cpu(cuda, dtype, hubs):
+    """The hub matrix written on the card from the edge counts: the CPU's
+    split (ids, tail, the counts as floats), and ``"auto"`` the same count
+    on both devices."""
+    ds_c = synthetic_powerlaw(4096, 16, seed=7, dense_threshold=0,
+                              device="cpu")
+    ds_g = synthetic_powerlaw(4096, 16, seed=7, dense_threshold=0,
+                              device=cuda)
+    hc = build_hub_split(ds_c.graph, hubs, dtype=dtype)
+    hg = build_hub_split(ds_g.graph, hubs, dtype=dtype)
+    assert hg.num_hubs == hc.num_hubs and hg.m_tail == hc.m_tail
+    assert hg.hub_matrix.dtype == dtype
+    assert torch.equal(hg.hub_ids.cpu(), hc.hub_ids)
+    assert torch.equal(hg.hub_matrix.float().cpu(), hc.hub_matrix)
+    assert torch.equal(hg.tail_src.cpu(), hc.tail_src)
+    assert torch.equal(hg.tail_ptr.cpu(), hc.tail_ptr)
+
+
+@pytest.mark.parametrize("b", [1, 16, 64])
+def test_k3_at_the_1m_row_count_matches_plain(cuda, b):
+    """K3 over 2^20 + 128 table rows (the 1M cell's n_pad) and a few million
+    destination-sorted edges with long and empty segments: bit for bit its
+    plain version, twice."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    n_rows, m = (1 << 20) + 128, 3_000_000
+    rng = np.random.default_rng(11)
+    w = 1.0 / (np.arange(n_rows) + 10.0)
+    dst = np.sort(rng.choice(n_rows - 1, size=m, p=w[:-1] / w[:-1].sum()))
+    src = torch.as_tensor(rng.integers(0, n_rows, m).astype(np.int32),
+                          device=cuda)
+    ptr = torch.as_tensor(np.searchsorted(dst, np.arange(n_rows + 1))
+                          .astype(np.int64), device=cuda)
+    table = torch.rand((n_rows, b), device=cuda, generator=gen)
+    got = row_gather.gather_segment_sum(table, src, ptr)
+    want = row_gather.gather_segment_sum_ref(table, src, ptr)
+    assert torch.equal(got, want)
+    assert torch.equal(got, row_gather.gather_segment_sum(table, src, ptr))
+
+
+def test_fora_auto_hubs_on_the_card_matches_cpu(cuda):
+    """``ForaTopk.enable_hub_split()`` (the automatic count, f32 product)
+    on the card: the CPU's count, sweeps and top-10 sets."""
+    out = {}
+    for dev in ("cpu", cuda):
+        ds = synthetic_powerlaw(4096, 16, seed=7, dense_threshold=0,
+                                device=dev)
+        algo = ForaTopk(ds, ALPHA, 10, push="none")
+        algo.enable_hub_split()
+        vals, ids = algo.compute_topk_ids_batch(np.arange(0, 4096, 97), 10,
+                                                0.5)
+        out[str(dev)] = (algo.hub_split.num_hubs, algo.last_iters,
+                         [set(topk_ids_with_ties_from_pairs(
+                             vals[i], ids[i], 10, tol=1e-6).tolist())
+                          for i in range(len(vals))])
+    assert out["cpu"] == out[str(cuda)]

@@ -118,6 +118,16 @@ def test_pad_sources():
         assert len(padded) == max(8, b) and not padded[b:].any()
 
 
+@pytest.mark.parametrize("k,n_pad,kcap", [
+    (10, 65664, None), (1, 128, None), (40, 65664, None), (10, 24, None),
+    (10, 65664, 17), (10, 24, 64)])
+def test_topk_kcap_is_jax_s_window(k, n_pad, kcap):
+    """The one kcap rule every top-k engine and driver of the port takes
+    is the JAX serving path's (``ppr_tpu/models/fora.py:864-865``)."""
+    want = min(int(kcap) if kcap else min(max(4 * k, k + 32), n_pad), n_pad)
+    assert tfora.topk_kcap(k, n_pad, kcap) == want
+
+
 def test_num_chunks_matches_jax(datasets):
     jds, tds = datasets["sparse"]
     jalgo = jfora.ForaTopk(jds, ALPHA, K, push="none")

@@ -43,6 +43,7 @@ MODULES = [
     "ppr_tpu_torch.utils.cuda_timing",
     "ppr_tpu_torch.utils.cpu_fora",
     "ppr_tpu_torch.utils.calibrate",
+    "ppr_tpu_torch.utils.drivers",
     "ppr_tpu_torch.service",
     "ppr_tpu_torch.serving",
     "ppr_tpu_torch.harness",
@@ -65,6 +66,11 @@ MODULES = [
     "row_gather_ablation",
     "bench_torch",
     "serving_latency_torch",
+    "hub_knee_torch",
+    "scale_1m_torch",
+    "scale_1m_knee_torch",
+    "ring_occupancy_torch",
+    "gen_scaling_model_torch",
 ]
 
 _PROBE = """
