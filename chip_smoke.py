@@ -186,6 +186,23 @@ script exits non-zero:
    loop and the power-method oracle), and each such call's launches equal
    its loop's sweeps times one launch a chunk or non-empty ring block;
    each phase prints its wall;
+14b. the mesh across processes (``dist_path``): 4 gloo ranks share this
+   card (NCCL takes one rank a card), started by ``spawn_local`` with a
+   deadline, each a ``python3 chip_smoke.py --dist-rank DIR`` process
+   (``dist_rank``) on ``global_mesh``: ``[dist:edge]`` (``ShardedForaTopk``
+   2x2, B 2048, the bench graph), ``[dist:node]``
+   (``NodeShardedForaTopk`` 1x4, bf16 ring, frontier 16 of 64 blocks),
+   ``[dist:walks]`` (``NodeShardedForaWholeGraph`` 1x4 with walks, B 64)
+   and ``[dist:protocol]`` (``PerfHarness(mesh=global_mesh(2))`` on the
+   grqc stand-in, Tests 1-2, Forward Push and BASE): the single-process
+   meshes' sweeps, selections, final reserve parts (SHA-256) and walk rows
+   bit for bit, precision@10 >= 0.99, rows within ``JAX_ROWS``, one
+   report (rank 0's) and BASE stores equal to ``[protocol:mesh]``'s; each
+   part's wall, its wire bytes, each rank's seconds in its collectives
+   over its wall (``Mesh.wire_s``) and the wall beyond the single
+   process's; each
+   rank's K3 launches held call by call by ``HeldK3(spanning=True)``, and
+   K0 once a rank;
 15. the automatic hub count and the 1M cell (``scale_path``):
    ``[hubs:constants]`` (the rule's two prices measured at B 512 on the
    bench graph beside the constants in ``ops/hub_split.py``, each within
@@ -214,15 +231,17 @@ the walk path (11), the weighted path and the store path (12) and the
 mesh path (13: reset after the single-device references, read before
 ``[mesh:dryrun]``, and equal to the sum of the mesh engines' own counts)
 and the mesh protocol path (14: after its single-device references,
-before ``[mesh:scaling]``) and the scale path (15: after
+before ``[mesh:scaling]``), the mesh across processes (14b: in each rank,
+before its engines and after them, summed over the ranks) and the scale
+path (15: after
 ``[hubs:constants]``, before ``[scale:1m:k3]``);
 a reset also forgets the probe, so each path runs K0 once before its
 first hand kernel. The
 weighted path must launch K3 only in its coefficient mode, and never its
 plain version; the mesh path must launch K3 in both modes. The last three
-lines are the kernels' JSON record (``launches`` summed over the nine
-paths, K3's ``mesh``, ``mesh_protocol`` and ``scale`` entries with those
-paths' own;
+lines are the kernels' JSON record (``launches`` summed over the ten
+paths, K3's ``mesh``, ``mesh_protocol``, ``dist`` and ``scale`` entries
+with those paths' own;
 ``row_gather`` is a
 microbenchmark, as P1-P4 were on the TPU, so no path launches it; ``ms``,
 ``plain_ms``, ``library_ms``, ``bound_ms`` and ``bound_by`` at one shape
@@ -2880,18 +2899,27 @@ class HeldK3:
     operator carries a push without a hub split; ``NodeShardedForaTopk``
     (its sweeps rounded up to a host read, times one launch a non-empty
     ring block of every data row); and ``ring_occupancy_torch``'s
-    coverage loop (one launch a sweep)."""
+    coverage loop (one launch a sweep).
 
-    def __init__(self, single: bool = False):
+    ``spanning=True`` (a rank of ``[dist:*]``) also holds the serving
+    engines on a mesh across processes: ``ShardedForaTopk._run`` and
+    ``NodeShardedForaTopk._run`` (their sweeps rounded up to a host read)
+    and ``NodeShardedForaWholeGraph.compute_whole_graph_batch`` (its ring
+    sweeps), each times one launch a non-empty chunk or ring block of this
+    rank's positions; the walks launch none. Every count is this rank's."""
+
+    def __init__(self, single: bool = False, spanning: bool = False):
         self.calls = self.got = self.want = 0
         self.bad: list[str] = []
         self._undo = []
         self._depth = 0
         self.single = single
+        self.spanning = spanning
 
     def __enter__(self):
         from ppr_tpu_torch.models import power_method
         from ppr_tpu_torch.ops.push import CHECK_EVERY
+        from ppr_tpu_torch.parallel.mesh import is_remote
         from ppr_tpu_torch.parallel.mesh_algos import _EdgeShardedKernels
         from ppr_tpu_torch.parallel.node_sharded_allpair import \
             NodeShardedBackwardSearch
@@ -2899,11 +2927,12 @@ class HeldK3:
             ShardedBackwardSearch
 
         def chunks(parts):
-            return sum(len(row) for row in parts)
+            # this rank's chunks: on a mesh across processes each rank
+            # launches K3 for its own positions only
+            return sum(not is_remote(ch) for row in parts for ch in row)
 
         def blocks(shards):
-            return sum(bl.src is not None for row in shards for sh in row
-                       for bl in sh.blocks)
+            return local_ring_blocks(shards)
 
         def power_iters(a, kw):
             return int(a[3] if len(a) > 3 else kw.get("iterations", 100))
@@ -2927,7 +2956,34 @@ class HeldK3:
             self._patch(owner, name, want)
         if self.single:
             self._patch_single()
+        if self.spanning:
+            self._patch_spanning()
         return self
+
+    def _patch_spanning(self):
+        from ppr_tpu_torch.models import fora
+        from ppr_tpu_torch.parallel.mesh import is_remote
+        from ppr_tpu_torch.parallel.node_sharded_fora import (
+            NodeShardedForaTopk, NodeShardedForaWholeGraph)
+        from ppr_tpu_torch.parallel.sharded_fora import ShardedForaTopk
+
+        def read_rounds(n):
+            return -(-int(n) // fora.CHECK_EVERY) * fora.CHECK_EVERY
+
+        def chunks(eng):
+            return sum(not is_remote(ch) and ch.src.numel() > 0
+                       for row in eng._chunks for ch in row)
+
+        for owner, name, want in (
+                (ShardedForaTopk, "_run", lambda a, kw, res:
+                 read_rounds(res[3]) * chunks(a[0])),
+                (NodeShardedForaTopk, "_run", lambda a, kw, res:
+                 read_rounds(res[3])
+                 * local_ring_blocks(a[0]._program(a[2], a[3])[1])),
+                (NodeShardedForaWholeGraph, "compute_whole_graph_batch",
+                 lambda a, kw, res: a[0].last_iters * local_ring_blocks(
+                     node_shards_of(a[0])))):
+            self._patch(owner, name, want)
 
     def _patch_single(self):
         import ring_occupancy_torch
@@ -3003,6 +3059,22 @@ class HeldK3:
         check(got == want and calls > 0,
               f"[{tag}] {got} K3 launches in {calls} calls, want {want}")
         return got
+
+
+def local_ring_blocks(shards) -> int:
+    """The non-empty ring blocks of this rank's positions."""
+    from ppr_tpu_torch.parallel.mesh import is_remote
+
+    return sum(bl.src is not None for row in shards for sh in row
+               if not is_remote(sh) for bl in sh.blocks)
+
+
+def node_shards_of(eng):
+    """The ring shards a ``NodeShardedForaWholeGraph`` sweeps over, as its
+    propagation builds them."""
+    from ppr_tpu_torch.parallel.node_sharded import node_shards
+
+    return node_shards(eng.graph, eng.mesh)
 
 
 def on_card_within(got, want, atol=5e-6, rtol=1e-4) -> tuple[bool, float]:
@@ -3350,6 +3422,369 @@ def mesh_protocol_path(dev, ds, sources, oracle) -> dict:
     walls["mesh:comm"] = time.perf_counter() - t_phase
     out["walls"] = walls
     print(f"[mesh:protocol] walls (s): {walls}")
+    return launches, out
+
+
+DIST_RANKS = 4
+#: seconds the ranks' collectives wait for a lost peer, and the phase's
+#: deadline
+DIST_COLLECTIVE_S, DIST_DEADLINE_S = 300, 600
+DIST_DIR = os.path.join("build", "ppr_tpu_torch", "dist")
+#: the node engine's settings at [dist:node]: [mesh:node]'s bf16 ring
+#: compacted to 16 of its 64 frontier blocks
+DIST_NODE = {"ring_dtype": "bf16", "frontier_blocks": 16}
+
+
+def digest(x) -> str:
+    """SHA-256 of an array's bytes: equal digests are equal bits."""
+    import hashlib
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+
+
+def stash_runs(eng) -> list:
+    """Keep each ``eng._run`` result (the selection, the final reserve
+    parts and the sweeps) in the returned list."""
+    runs, orig = [], eng._run
+
+    def kept(*a, **kw):
+        out = orig(*a, **kw)
+        runs.append(out)
+        return out
+
+    eng._run = kept
+    return runs
+
+
+def serving_case(eng, sources) -> dict:
+    """One ``compute_topk_ids_batch`` of B = ``len(sources)`` on ``eng``:
+    the selection, the sweeps and each of this process's final reserve
+    parts' digest by position."""
+    from ppr_tpu_torch.parallel.mesh import is_remote
+
+    runs = stash_runs(eng)
+    eng.mesh.synchronize()
+    t0 = time.perf_counter()
+    vals, ids = eng.compute_topk_ids_batch(sources, K, EPS)
+    eng.mesh.synchronize()
+    wall = time.perf_counter() - t0
+    _, _, finals, iters = runs[-1]
+    if finals and not isinstance(finals[0], list):   # the edge engine's rows
+        finals = [[x] for x in finals]
+    parts = {f"{d},{s}": digest(x) for d, row in enumerate(finals)
+             for s, x in enumerate(row) if not is_remote(x)}
+    return {"vals": vals, "ids": ids, "sweeps": int(iters), "wall_s": wall,
+            "parts": parts}
+
+
+def dist_rank(work: str) -> int:
+    """A rank of ``[dist:*]``: ``DIST_RANKS`` gloo ranks share this card.
+    Each joins the group, builds the bench graph, and runs the edge 2x2
+    and node 1x4 serving engines at B 2048, the node whole-graph with
+    walks at B 64 and ``PerfHarness`` at 2x2 on the grqc stand-in, every
+    one on ``global_mesh``, inside ``HeldK3(spanning=True)``. Writes what
+    it got to ``work/rank<r>.json`` (and its arrays to ``.npz``)."""
+    import torch
+    import torch.distributed as dist
+
+    from ppr_tpu_torch import cli
+    from ppr_tpu_torch.device import set_exact_f32_matmul
+    from ppr_tpu_torch.graph.io import synthetic_powerlaw
+    from ppr_tpu_torch.harness import PerfHarness
+    from ppr_tpu_torch.ops import cuda_build
+    from ppr_tpu_torch.parallel.distributed import (global_mesh,
+                                                    initialize_from_env)
+    from ppr_tpu_torch.parallel.node_sharded_fora import (
+        NodeShardedForaTopk, NodeShardedForaWholeGraph)
+    from ppr_tpu_torch.parallel.sharded_fora import ShardedForaTopk
+
+    # NCCL takes one rank a card: the ranks sharing this card use gloo
+    check(initialize_from_env("gloo", timeout_s=DIST_COLLECTIVE_S),
+          "[dist] no multi-process environment")
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    set_exact_f32_matmul()
+    cuda_build.load_library("row_gather")
+    cuda_build.load_library("probe")
+    ds = synthetic_powerlaw(65536, 16, seed=42, dense_threshold=0,
+                            device=dev)
+    sources = np.random.default_rng(0).integers(0, ds.n, 2048)
+    grqc = cli.load_dataset("synth:grqc", device=dev)
+    m22 = global_mesh(2, devices=[dev])
+    m14 = global_mesh(4, devices=[dev])
+    out, arrays, walls = {"rank": rank}, {}, {}
+    reset_launches()
+    with HeldK3(spanning=True) as held:
+        for tag, eng in (("edge", ShardedForaTopk(ds, ALPHA, K, mesh=m22)),
+                         ("node", NodeShardedForaTopk(ds, ALPHA, K, mesh=m14,
+                                                      **DIST_NODE))):
+            wire0, wire_s0 = eng.mesh.wire_bytes, eng.mesh.wire_s
+            mark = held.mark()
+            res = serving_case(eng, sources)
+            arrays[f"{tag}_vals"], arrays[f"{tag}_ids"] = \
+                res.pop("vals"), res.pop("ids")
+            res.update(wire_bytes=eng.mesh.wire_bytes - wire0,
+                       wire_s=eng.mesh.wire_s - wire_s0,
+                       k3=held.mark()[1] - mark[1])
+            out[tag] = res
+            walls[f"dist:{tag}"] = res["wall_s"]
+            del eng
+
+        eng = NodeShardedForaWholeGraph(ds, ALPHA, mesh=m14,
+                                        completion="walks", seed=3,
+                                        max_walkers_per_device=1 << 24)
+        wire0, wire_s0 = m14.wire_bytes, m14.wire_s
+        m14.synchronize()
+        t0 = time.perf_counter()
+        rows = eng.compute_whole_graph_batch(sources[:64], EPS)
+        walls["dist:walks"] = time.perf_counter() - t0
+        arrays["walks_rows"] = rows
+        out["walks"] = {"sweeps": eng.last_iters, "rows": digest(rows),
+                        "wire_bytes": m14.wire_bytes - wire0,
+                        "wire_s": m14.wire_s - wire_s0,
+                        "wall_s": walls["dist:walks"]}
+        del eng
+
+        protocol = os.path.abspath(os.path.join(work, "protocol"))
+        harness = PerfHarness(grqc, seed=0, out_dir=protocol,
+                              progress=False, mesh=m22)
+        wire0, wire_s0 = m22.wire_bytes, m22.wire_s
+        cwd = os.getcwd()
+        t0 = time.perf_counter()
+        try:
+            os.chdir(protocol)
+            with open(os.path.join(protocol, f"rank{rank}.log"), "w") as f, \
+                    contextlib.redirect_stdout(f):
+                harness.algo_perf_batch_test(
+                    50, K, tests=(1, 2), algos={"FWDPUSH",
+                                                "BASE_WHOLE_GRAPH"})
+        finally:
+            os.chdir(cwd)
+        walls["dist:protocol"] = time.perf_counter() - t0
+        out["protocol"] = {"report": harness.writer.path,
+                           "writer": harness.writer.enabled,
+                           "wire_bytes": m22.wire_bytes - wire0,
+                           "wire_s": m22.wire_s - wire_s0}
+    out["held"] = {"calls": held.calls, "got": held.got, "want": held.want,
+                   "bad": held.bad[:5]}
+    out["launches"] = read_launches()
+    out["walls"] = walls
+    np.savez(os.path.join(work, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def store_arrays(root: str) -> dict:
+    """A BASE store's manifest and every shard's arrays."""
+    out = {}
+    for name in sorted(os.listdir(root)):
+        path = os.path.join(root, name)
+        if name.endswith(".npz"):
+            with np.load(path) as z:
+                out[name] = {k: z[k].tobytes() for k in z.files}
+        else:
+            with open(path) as f:
+                out[name] = json.load(f)
+    return out
+
+
+def wire_shares(ranks, tag) -> list[float]:
+    """Each rank's seconds in its collectives (``Mesh.wire_s``: gloo's
+    staging, the transfer and the wait for the peers) over its wall."""
+    return [round(got[tag]["wire_s"] / got[tag]["wall_s"], 4)
+            for got in ranks]
+
+
+def dist_path(dev, ds, sources, oracle) -> tuple[dict, dict]:
+    """``[dist:*]``: the mesh across processes, ``DIST_RANKS`` gloo ranks
+    sharing this card (``parallel/distributed.py``; NCCL takes one rank a
+    card). The single-process meshes of the card repeated give the
+    references first: ``ShardedForaTopk`` 2x2 and ``NodeShardedForaTopk``
+    1x4 (``DIST_NODE``) at B 2048 on the bench graph, and
+    ``NodeShardedForaWholeGraph`` 1x4 with walks at B 64. Then the ranks
+    (``dist_rank``) run the same on ``global_mesh``: ``[dist:edge]`` and
+    ``[dist:node]`` must give the references' sweeps, selections and
+    final reserve parts bit for bit (SHA-256 of each part's bytes) and
+    precision@10 >= 0.99 against the oracle, ``[dist:walks]`` the
+    reference's rows bit for bit, and ``[dist:protocol]``
+    (``PerfHarness(mesh=global_mesh())`` at 2x2 on the grqc stand-in,
+    Tests 1-2, Forward Push and BASE) rows within ``JAX_ROWS``'s bars, one
+    report written (by rank 0) and BASE stores whose manifests and arrays
+    equal those ``[protocol:mesh]``'s 2x2 harness wrote. Every rank's K3
+    launches are held call by call (``HeldK3(spanning=True)``), and each
+    rank runs K0 once. Returns the K3 and K0 launches summed over the
+    ranks and what the phase measured."""
+    import torch
+
+    from ppr_tpu_torch.parallel.distributed import spawn_local
+    from ppr_tpu_torch.parallel.mesh import make_mesh
+    from ppr_tpu_torch.parallel.node_sharded_fora import (
+        NodeShardedForaTopk, NodeShardedForaWholeGraph)
+    from ppr_tpu_torch.parallel.sharded_fora import ShardedForaTopk
+
+    def mesh(d, g):
+        return make_mesh(d * g, data=d, graph=g, devices=[dev] * (d * g))
+
+    t_phase = time.perf_counter()
+    refs = {}
+    for tag, eng in (("edge", ShardedForaTopk(ds, ALPHA, K, mesh=mesh(2, 2))),
+                     ("node", NodeShardedForaTopk(ds, ALPHA, K,
+                                                  mesh=mesh(1, 4),
+                                                  **DIST_NODE))):
+        refs[tag] = serving_case(eng, sources)
+        del eng
+    eng = NodeShardedForaWholeGraph(ds, ALPHA, mesh=mesh(1, 4),
+                                    completion="walks", seed=3,
+                                    max_walkers_per_device=1 << 24)
+    walk_rows = eng.compute_whole_graph_batch(sources[:64], EPS)
+    refs["walks"] = {"sweeps": eng.last_iters, "rows": digest(walk_rows)}
+    del eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_phase
+    print(f"[dist] single-process references on {dev} repeated: edge 2x2 "
+          f"{refs['edge']['sweeps']} sweeps, node 1x4 {DIST_NODE} "
+          f"{refs['node']['sweeps']} sweeps, whole-graph walks 1x4 B 64 "
+          f"{refs['walks']['sweeps']} ring sweeps; {ref_s:.1f} s")
+
+    work = os.path.abspath(DIST_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "protocol"))
+    t0 = time.perf_counter()
+    spawn_local(DIST_RANKS, [sys.executable, os.path.abspath(__file__),
+                             "--dist-rank", work],
+                timeout_s=DIST_DEADLINE_S, log_dir=os.path.join(work, "logs"))
+    spawn_s = time.perf_counter() - t0
+    ranks, arrays = [], []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+        arrays.append(dict(np.load(os.path.join(work, f"rank{r}.npz"))))
+    print(f"[dist] {DIST_RANKS} gloo ranks on {dev}, spawned and joined in "
+          f"{spawn_s:.1f} s (each builds the bench graph; its output in "
+          f"{os.path.join(DIST_DIR, 'logs')})")
+
+    n_acc, tol, b = len(oracle), EPS / ds.n, len(sources)
+    out = {"ranks": DIST_RANKS, "backend": "gloo", "spawn_s": spawn_s}
+    for tag, shape in (("edge", "2x2"), ("node", f"1x4 {DIST_NODE}")):
+        ref = refs[tag]
+        parts = {}
+        for got, arr in zip(ranks, arrays):
+            parts.update(got[tag]["parts"])
+            check(got[tag]["sweeps"] == ref["sweeps"],
+                  f"[dist:{tag}] rank {got['rank']}: {got[tag]['sweeps']} "
+                  f"sweeps, the single process {ref['sweeps']}")
+            check(np.array_equal(arr[f"{tag}_vals"], ref["vals"])
+                  and np.array_equal(arr[f"{tag}_ids"], ref["ids"]),
+                  f"[dist:{tag}] rank {got['rank']}: the selection differs "
+                  "from the single process's")
+        check(parts == ref["parts"], f"[dist:{tag}] final reserve parts "
+              f"differ from the single process's: {sorted(parts)} vs "
+              f"{sorted(ref['parts'])}")
+        prec = precision(oracle, tie_tolerant_ids(
+            arrays[0][f"{tag}_vals"], arrays[0][f"{tag}_ids"], n_acc, tol))
+        check(prec >= 0.99, f"[dist:{tag}] precision@10 {prec} < 0.99")
+        wall = max(got[tag]["wall_s"] for got in ranks)
+        wire = sum(got[tag]["wire_bytes"] for got in ranks)
+        k3 = [got[tag]["k3"] for got in ranks]
+        beyond = 1.0 - ref["wall_s"] / wall
+        wire_share = wire_shares(ranks, tag)
+        print(f"[dist:{tag}] {shape} over {DIST_RANKS} ranks, B={b}: wall "
+              f"{wall * 1e3:.1f} ms (single process {ref['wall_s'] * 1e3:.1f}"
+              f" ms), {wall * 1e3 / ref['sweeps']:.2f} ms a sweep (single "
+              f"process {ref['wall_s'] * 1e3 / ref['sweeps']:.2f}); sweeps "
+              f"{ref['sweeps']} on every rank as in one process; the "
+              f"selection and the {len(parts)} final reserve parts equal bit "
+              f"for bit; precision@10 {prec:.4f}; the wire {wire} bytes out "
+              f"of all ranks, {wire / ref['sweeps']:.0f} a sweep; its "
+              f"collectives' time over the wall by rank {wire_share}; "
+              f"{beyond:.4f} of the wall beyond the single process's; K3 "
+              f"launches by rank {k3}")
+        out[tag] = {"wall_ms": wall * 1e3, "single_ms": ref["wall_s"] * 1e3,
+                    "sweeps": ref["sweeps"], "precision": prec,
+                    "wire_bytes": wire,
+                    "wire_bytes_per_sweep": wire / ref["sweeps"],
+                    "wire_share_by_rank": wire_share,
+                    "beyond_single_share": beyond, "k3_by_rank": k3}
+
+    for got, arr in zip(ranks, arrays):
+        check(got["walks"]["rows"] == refs["walks"]["rows"]
+              and got["walks"]["sweeps"] == refs["walks"]["sweeps"],
+              f"[dist:walks] rank {got['rank']}: rows differ from the "
+              "single process's")
+    mass = arrays[0]["walks_rows"].astype(np.float64).sum(axis=1)
+    check(bool((np.abs(mass - 1.0) <= 1e-3).all()),
+          "[dist:walks] row mass off by more than 1e-3")
+    wall = max(got["walks"]["wall_s"] for got in ranks)
+    wire = sum(got["walks"]["wire_bytes"] for got in ranks)
+    wire_share = wire_shares(ranks, "walks")
+    print(f"[dist:walks] node whole-graph 1x4 with walks, B=64: wall "
+          f"{wall:.2f} s, ring sweeps {refs['walks']['sweeps']}, rows equal "
+          f"to the single process's bit for bit on every rank, mass "
+          f"{mass.min():.7f}..{mass.max():.7f}; the wire {wire} bytes, its "
+          f"time over the wall by rank {wire_share}")
+    out["walks"] = {"wall_s": wall, "sweeps": refs["walks"]["sweeps"],
+                    "wire_bytes": wire, "wire_share_by_rank": wire_share}
+
+    reports = {got["protocol"]["report"] for got in ranks}
+    writers = [got["rank"] for got in ranks if got["protocol"]["writer"]]
+    check(len(reports) == 1 and writers == [0],
+          f"[dist:protocol] reports {reports}, writers {writers}")
+    check_protocol_rows("dist 2x2", protocol_rows(reports.pop()),
+                        jax_rows=JAX_ROWS["grqc"])
+    single_root = os.path.join(PROTOCOL_DIR, "mesh_grqc_2x2",
+                               "BASE_ppr_results", "grqc")
+    dist_root = os.path.join(work, "protocol", "BASE_ppr_results", "grqc")
+    stores = sorted(os.listdir(single_root))
+    check(stores == sorted(os.listdir(dist_root)),
+          f"[dist:protocol] BASE stores {sorted(os.listdir(dist_root))} vs "
+          f"{stores}")
+    for name in stores:
+        check(store_arrays(os.path.join(single_root, name))
+              == store_arrays(os.path.join(dist_root, name)),
+              f"[dist:protocol] BASE store {name} differs from the single "
+              "process's")
+    wall = max(got["walls"]["dist:protocol"] for got in ranks)
+    wire = sum(got["protocol"]["wire_bytes"] for got in ranks)
+    wire_share = [round(got["protocol"]["wire_s"]
+                        / got["walls"]["dist:protocol"], 4) for got in ranks]
+    print(f"[dist:protocol] PerfHarness(mesh=global_mesh()) 2x2 on "
+          f"synth:grqc, Tests 1-2, FWDPUSH and BASE_WHOLE_GRAPH: wall "
+          f"{wall:.1f} s; one report, by rank 0; the {len(stores)} BASE "
+          f"stores' manifests and arrays equal to [protocol:mesh]'s 2x2 "
+          f"harness's; the wire {wire} bytes, its time over the wall by "
+          f"rank {wire_share}")
+    out["protocol"] = {"wall_s": wall, "stores": len(stores),
+                       "wire_bytes": wire, "wire_share_by_rank": wire_share}
+
+    launches = {key: sum(got["launches"][key] for got in ranks)
+                for key in ranks[0]["launches"]}
+    for got in ranks:
+        h = got["held"]
+        check(not h["bad"] and h["got"] == h["want"] and h["calls"] > 0,
+              f"[dist] rank {got['rank']}: K3 launches {h['got']} in "
+              f"{h['calls']} held calls, want {h['want']}: {h['bad']}")
+        check(got["launches"]["k3"] == h["got"],
+              f"[dist] rank {got['rank']}: K3 launched outside the held "
+              "calls")
+        check(got["launches"]["k0"] == 1,
+              f"[dist] rank {got['rank']}: K0 did not run once")
+    print(f"[dist] launches summed over the ranks: {launches}; each rank's "
+          f"K3 launches equal its held calls' sweeps x its own chunks or "
+          f"ring blocks: {[got['held']['got'] for got in ranks]}")
+    out["k3_launches"] = launches["k3"]
+    out["walls"] = {key: max(got["walls"][key] for got in ranks)
+                    for key in ranks[0]["walls"]}
+    out["walls"]["references"] = ref_s
+    print(f"[dist] walls (s): {out['walls']}, phase "
+          f"{time.perf_counter() - t_phase:.1f}")
     return launches, out
 
 
@@ -3817,15 +4252,18 @@ def main() -> int:
     del wds
     # --- 14. the protocol on a mesh of the card ----------------------------
     mesh_proto, mesh_proto_out = mesh_protocol_path(dev, ds, sources, oracle)
+    # --- 14b. the mesh across processes, ranks sharing this card ----------
+    spanning, spanning_out = dist_path(dev, ds, sources, oracle)
     store = neostore_path(dev)
     # --- 15. the automatic hub count and the 1M cell ------------------------
     scale, scale_out = scale_path(dev, ds, sweeps)
     launches = {k: serving[k] + layer[k] + protocol[k] + walks[k]
-                + weighted[k] + mesh[k] + mesh_proto[k] + store[k]
-                + scale[k] for k in serving}
+                + weighted[k] + mesh[k] + mesh_proto[k] + spanning[k]
+                + store[k] + scale[k] for k in serving}
     print(f"[launches] serving path {serving}, serving layer {layer}, "
           f"protocol path {protocol}, walk path {walks}, weighted path "
           f"{weighted}, mesh path {mesh}, mesh protocol path {mesh_proto}, "
+          f"mesh across processes (summed over its ranks) {spanning}, "
           f"store path {store}, scale path {scale}")
     source = "ppr_tpu_torch/csrc/dense_power.cu"
     print(json.dumps({"kernels": [{
@@ -3907,6 +4345,7 @@ def main() -> int:
                      "shapes", "engines")}},
         "mesh_protocol": {"launches": mesh_proto["k3"],
                           **mesh_proto_out},
+        "dist": {"launches": spanning["k3"], **spanning_out},
         "scale": {"launches": scale["k3"], **scale_out},
     }, {
         "name": "row_gather",
@@ -3940,4 +4379,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-rank"]:
+        sys.exit(dist_rank(sys.argv[2]))
     sys.exit(main())

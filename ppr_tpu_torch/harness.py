@@ -205,7 +205,10 @@ class PerfHarness:
         #: in batched mode, run the query batch once untimed first, so the
         #: kernels' build and first launches stay out of per-query times
         self.warmup = warmup
-        self.writer = PerfResultWriter(dataset.name, out_dir)
+        # on a mesh across processes every rank runs the protocol and rank
+        # 0 writes the report
+        self.writer = PerfResultWriter(
+            dataset.name, out_dir, enabled=mesh is None or mesh.is_writer)
         self._rng = np.random.default_rng(seed)
         self._oracle_cache: dict[tuple, np.ndarray] = {}
 
@@ -343,6 +346,12 @@ class PerfHarness:
             fields += [res.avg_max_err]
         self.writer.row(*fields)
 
+    def _elapsed(self, t0: float) -> float:
+        """Seconds since ``t0``; on a mesh across processes the slowest
+        rank's, so every rank takes the same budget decision."""
+        elapsed = time.perf_counter() - t0
+        return elapsed if self.mesh is None else self.mesh.agree_max(elapsed)
+
     # --- batch test (algo_perf_batch_test parity, Gen_Util.java:328-646) ----
     def algo_perf_batch_test(self, query_num: int = 50, k: int = 10,
                              sweep: str | None = None,
@@ -402,7 +411,7 @@ class PerfHarness:
             t0 = time.perf_counter()
             for j, param in enumerate(params):
                 if budget_s is not None and j > 0 \
-                        and time.perf_counter() - t0 > budget_s:
+                        and self._elapsed(t0) > budget_s:
                     skipped = params[j:]
                     self.writer.section(
                         f"# remaining params skipped (budget "

@@ -114,7 +114,9 @@ class PreprocessingMixin:
 
     def make_store(self, param) -> PPRStore:
         root = os.path.join(self.prep_dirname, self.dataset.name, str(param))
-        return PPRStore(root, n=self.graph.n_pad)
+        # a mesh engine's store: one writer among the mesh's processes
+        return PPRStore(root, n=self.graph.n_pad,
+                        mesh=getattr(self, "mesh", None))
 
     #: True while ``preprocessing`` or its warm-up runs: FORA's cost model
     #: then prices the transfer of each row's entries to the host

@@ -53,7 +53,9 @@ class BaseAllPair(PPRAlgorithm):
     def make_store(self, threshold, k) -> PPRStore:
         root = os.path.join(self.prep_dirname, self.dataset.name,
                             f"{threshold}_{k}")
-        return PPRStore(root, n=self.graph.n_pad)
+        # a mesh engine's store: one writer among the mesh's processes
+        return PPRStore(root, n=self.graph.n_pad,
+                        mesh=getattr(self, "mesh", None))
 
     def warm_preprocessing(self, threshold: float, k: int = -1) -> None:
         """Run one target batch through the reverse push and the device

@@ -1,15 +1,15 @@
-"""Mesh engines on a ``(data, graph)`` grid of devices driven by one
-process — port of ``ppr_tpu/parallel/``: FORA top-k and whole-graph
-serving (``sharded_fora``, ``node_sharded_fora``), the protocol's mesh
-drop-ins for every algorithm (``mesh_algos``), the edge- and node-sharded
-BASE all-pair engines (``sharded_allpair``, ``node_sharded_allpair``), the
-scaling sweep (``scaling``), the communication model (``comm_model``) and
-the dry run (``dryrun``).
-
-Not ported yet: meshes across hosts (``distributed``, whose entry points
-raise; ROADMAP.md, queue 1, item 18, multi-host).
+"""Mesh engines on a ``(data, graph)`` grid of devices, driven by one
+process or by one process a card — port of ``ppr_tpu/parallel/``: FORA
+top-k and whole-graph serving (``sharded_fora``, ``node_sharded_fora``),
+the protocol's mesh drop-ins for every algorithm (``mesh_algos``), the
+edge- and node-sharded BASE all-pair engines (``sharded_allpair``,
+``node_sharded_allpair``), the scaling sweep (``scaling``), the
+communication model (``comm_model``), the dry run (``dryrun``) and the
+mesh across processes (``distributed``: ``initialize_from_env``,
+``global_mesh``).
 """
 
+from .distributed import global_mesh, initialize_from_env  # noqa: F401
 from .dryrun import dryrun_multichip, dryrun_sharded_base  # noqa: F401
 from .mesh import Mesh, make_mesh  # noqa: F401
 from .mesh_algos import (  # noqa: F401

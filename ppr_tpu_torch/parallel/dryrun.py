@@ -8,12 +8,16 @@ Its sharded BASE part, :func:`dryrun_sharded_base`, holds both all-pair
 engines to the single-device backward search and runs each protocol
 algorithm's preprocessing through :func:`~.mesh_algos.mesh_algo_obj`,
 reading a stored row back. ``devices=["cuda:0"] * 4`` runs it on one
-card, ``["cpu"] * 8`` on the CPU.
+card, ``["cpu"] * 8`` on the CPU; ``mesh=global_mesh()`` runs it on a
+mesh across processes (every rank calls it; the stores go to a directory
+rank 0 names, which the ranks must share).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import shutil
 import tempfile
 
 import numpy as np
@@ -23,7 +27,7 @@ from ..models.backward_search import BackwardSearch
 from ..models.config import AlgoType
 from ..models.fora import ForaTopk
 from ..ops.topk import topk_ids_with_ties
-from .mesh import make_mesh
+from .mesh import Mesh, is_remote, make_mesh
 from .mesh_algos import mesh_algo_obj
 from .node_sharded import (gather_nodes, make_node_sharded_propagate_ring,
                            make_node_sharded_walk_counts)
@@ -34,11 +38,13 @@ from .sharded_allpair import ShardedBackwardSearch
 from .sharded_fora import ShardedForaTopk
 
 
-def dryrun_multichip(n_devices: int, devices=None) -> dict:
-    """Run the mesh engines on ``make_mesh(n_devices, devices=devices)``
-    and check them; raises ``AssertionError`` on a mismatch. Returns what
-    it measured (errors and sweep counts)."""
-    mesh = make_mesh(n_devices, devices=devices)
+def dryrun_multichip(n_devices: int | None = None, devices=None, *,
+                     mesh: Mesh | None = None) -> dict:
+    """Run the mesh engines on ``mesh`` (default ``make_mesh(n_devices,
+    devices=devices)``) and check them; raises ``AssertionError`` on a
+    mismatch. Returns what it measured (errors and sweep counts)."""
+    if mesh is None:
+        mesh = make_mesh(n_devices, devices=devices)
     ds = synthetic_powerlaw(512, 4, seed=1, dense_threshold=0,
                             device=mesh.controller)
     k, eps = 10, 0.5
@@ -81,6 +87,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     want_shape = node.final_state_shard_shape(len(src_pad))
     for row in p_local:
         for part in row:
+            if is_remote(part):
+                continue
             assert tuple(part.shape) == want_shape, (
                 f"node-sharded state not O(n/S): {tuple(part.shape)}")
     out["state_shard"] = want_shape
@@ -100,7 +108,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
                                                         ring_dtype=dt)
         p, r, onehot = prepare(rows)
         p, _ = run(p, r, onehot, 8)
-        runs[dt] = gather_nodes(p).numpy()
+        runs[dt] = gather_nodes(p, mesh).numpy()
     assert np.isfinite(runs["f32"]).all()
     np.testing.assert_allclose(runs["bf16"], runs["f32"], atol=3e-3)
     out["bf16_err"] = float(np.abs(runs["bf16"] - runs["f32"]).max())
@@ -110,7 +118,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     starts = np.broadcast_to(rows[:, None], (len(rows), 64 * mesh.graph))
     counts = gather_nodes(walk(starts, np.full(starts.shape, 1.0 / 64
                                                 / mesh.graph, np.float32),
-                               3)).numpy()
+                               3), mesh).numpy()
     assert np.isfinite(counts).all()
     np.testing.assert_allclose(counts.sum(axis=0), 1.0, atol=1e-5)
 
@@ -119,23 +127,25 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     step, example = sharded_fora_step(mesh, ds.graph, alpha=0.15,
                                       num_sweeps=2)
     p, _ = step(*example)
-    mass = gather_columns(p).sum(dim=0).numpy()
+    mass = gather_columns(p, mesh).sum(dim=0).numpy()
     assert np.isfinite(mass).all()
     np.testing.assert_allclose(mass, 1.0, atol=1e-5)
     out["step_mass_err"] = float(np.abs(mass - 1.0).max())
-    out["base"] = dryrun_sharded_base(n_devices, devices=devices)
+    out["base"] = dryrun_sharded_base(mesh=mesh)
     mesh.synchronize()
     return out
 
 
-def dryrun_sharded_base(n_devices: int, devices=None) -> dict:
+def dryrun_sharded_base(n_devices: int | None = None, devices=None, *,
+                        mesh: Mesh | None = None) -> dict:
     """The sharded BASE part of the dry run (``__graft_entry__.py:
     168-230``): both all-pair engines against the single-device backward
     search, then each protocol algorithm's preprocessing on the mesh with
     a stored row read back, in a temporary directory. Raises
     ``AssertionError`` on a mismatch; returns the errors and store
     bytes."""
-    mesh = make_mesh(n_devices, devices=devices)
+    if mesh is None:
+        mesh = make_mesh(n_devices, devices=devices)
     ds = synthetic_powerlaw(512, 4, seed=1, dense_threshold=0,
                             device=mesh.controller)
     targets = np.arange(6, dtype=np.int32) * 11 % ds.graph.n
@@ -152,7 +162,7 @@ def dryrun_sharded_base(n_devices: int, devices=None) -> dict:
                                  device=mesh.controller)
     source = 13 % prep_ds.n
     stores = {}
-    with tempfile.TemporaryDirectory() as td:
+    with _shared_tempdir(mesh) as td:
         for algo_type, param in ((AlgoType.FWDPUSH, 1e-3),
                                  (AlgoType.MC, 2.0),
                                  (AlgoType.NEO4J_METHOD, 5),
@@ -173,3 +183,22 @@ def dryrun_sharded_base(n_devices: int, devices=None) -> dict:
             algo.delete_prep_dir()
     out["store_bytes"] = stores
     return out
+
+
+@contextlib.contextmanager
+def _shared_tempdir(mesh: Mesh):
+    """A temporary directory: rank 0's, named to every rank of a mesh across
+    processes, and removed by rank 0 once every rank is done with it."""
+    path = tempfile.mkdtemp() if mesh.is_writer else None
+    if mesh.spans:
+        import torch.distributed as dist
+
+        box = [path]
+        dist.broadcast_object_list(box, src=0, group=mesh.group)
+        path = box[0]
+    try:
+        yield path
+    finally:
+        mesh.barrier()
+        if mesh.is_writer:
+            shutil.rmtree(path, ignore_errors=True)

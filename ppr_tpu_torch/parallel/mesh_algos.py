@@ -54,7 +54,7 @@ from ..models.neo4j_method import Neo4jMethod, _normalize
 from ..ops.push import CHECK_EVERY, ForwardGate, _f32, _run_sweeps, \
     forward_sweep
 from . import mesh as mesh_mod
-from .mesh import Mesh, make_mesh, psum
+from .mesh import Mesh, is_remote, make_mesh, psum
 from .sharded import (collect_rows, edge_chunks, make_sharded_walk_counts,
                       onehot_t, shard_graph)
 from .sharded_allpair import sharded_base_allpair
@@ -88,11 +88,15 @@ class _EdgeShardedKernels:
         sources = np.asarray(sources, np.int32)
         cols = mesh_mod.split(len(sources), self.mesh.data)
         p, r, onehot = [], [], []
-        for c, row in zip(cols, self.mesh.devices):
+        for d, (c, row) in enumerate(zip(cols, self.mesh.devices)):
             srcs = sources[c]
             short = torch.as_tensor(self._out_deg[srcs] == 0)[None, :]
             prow, rrow, orow = [], [], []
-            for dev in row:
+            for s, dev in enumerate(row):
+                if not self.mesh.is_local(d, s):
+                    for out in (prow, rrow, orow):
+                        out.append(self.mesh.remote(d, s))
+                    continue
                 oh = onehot_t(srcs, self.g.n_pad, dev)
                 zero = torch.zeros_like(oh)
                 if init_shortcircuit:
@@ -120,22 +124,40 @@ class _EdgeShardedKernels:
         def step(p, r):
             p_out, r_out, anys = [], [], []
             for d, row in enumerate(self.chunks):
+                mine = [s for s, ch in enumerate(row) if not is_remote(ch)]
+                if not mine:
+                    p_out.append(p[d])
+                    r_out.append(r[d])
+                    continue
+
+                def push(xs, row=row, mine=mine):
+                    # this rank's chunks push; the row's psum crosses ranks
+                    parts = list(row)
+                    for s, x in zip(mine, xs):
+                        parts[s] = row[s].push(x)
+                    pushed = psum(parts)
+                    return [pushed[s] for s in mine]
+
                 pd, rd, any_d = forward_sweep(
-                    [gates[ch.src.device] for ch in row], p[d], r[d],
-                    onehot[d], lambda xs, row=row: psum(
-                        [ch.push(x) for ch, x in zip(row, xs)]),
-                    self.alpha)
-                p_out.append(pd)
-                r_out.append(rd)
+                    [gates[row[s].src.device] for s in mine],
+                    [p[d][s] for s in mine], [r[d][s] for s in mine],
+                    [onehot[d][s] for s in mine], push, self.alpha)
+                p_out.append(list(row))
+                r_out.append(list(row))
+                for s, pn, rn in zip(mine, pd, rd):
+                    p_out[d][s], r_out[d][s] = pn, rn
                 anys.append(any_d.to(torch.int32))
-            return p_out, r_out, mesh_mod.pmax(anys)[0] > 0
+            return p_out, r_out, mesh_mod.pmax(anys, self.mesh)[0] > 0
 
         return _run_sweeps(step, p, r, self.max_sweeps)
 
     def _rsum_max(self, r) -> torch.Tensor:
         """The largest column residue sum over the mesh (``pmax`` over
         ``data``), on the controller."""
-        return mesh_mod.pmax([row[0].sum(dim=0).max() for row in r])[0]
+        return mesh_mod.pmax([row[s].sum(dim=0).max()
+                              for d, row in enumerate(r)
+                              if (s := self.mesh.speaker(d)) is not None],
+                             self.mesh)[0]
 
     def propagate(self, p, r, onehot, target: float):
         """Synchronous propagation sweeps while the largest row residue sum
@@ -154,6 +176,10 @@ class _EdgeShardedKernels:
             for d, row in enumerate(self.chunks):
                 partials, dangs = [], []
                 for s, ch in enumerate(row):
+                    if is_remote(ch):
+                        partials.append(ch)
+                        dangs.append(ch)
+                        continue
                     dev = ch.src.device
                     # a sweep that is not live adds r * 0: p is unchanged
                     p[d][s] = torch.addcmul(p[d][s], r[d][s],
@@ -164,6 +190,8 @@ class _EdgeShardedKernels:
                     partials.append(ch.push(rem))
                 pushed = psum(partials)
                 for s, ch in enumerate(row):
+                    if is_remote(ch):
+                        continue
                     nxt = torch.addcmul(pushed[s], dangs[s], onehot[d][s])
                     r[d][s] = torch.where(lv[ch.src.device], nxt, r[d][s])
             it = it + live.to(torch.int32)
@@ -177,14 +205,17 @@ class _EdgeShardedKernels:
         262``)."""
         x, base = [], []
         for orow in onehot:
-            b = [(1.0 - damping) * oh for oh in orow]
+            b = [oh if is_remote(oh) else (1.0 - damping) * oh
+                 for oh in orow]
             base.append(b)
             x.append(list(b))
         for _ in range(int(iterations)):
             for d, row in enumerate(self.chunks):
-                pushed = psum([ch.push(x[d][s]) for s, ch in enumerate(row)])
-                x[d] = [base[d][s] + damping * pushed[s]
-                        for s in range(len(row))]
+                pushed = psum([ch if is_remote(ch) else ch.push(x[d][s])
+                               for s, ch in enumerate(row)])
+                x[d] = [ch if is_remote(ch) else
+                        base[d][s] + damping * pushed[s]
+                        for s, ch in enumerate(row)]
         return x
 
 
@@ -204,9 +235,11 @@ class MeshForwardPush(ForwardPush):
         p, r, onehot = self._kern.prepare(sources_p, init_shortcircuit=True)
         p, r, self.last_sweeps = self._kern.push(p, r, onehot, float(param))
         dev = self.graph.device
+        r0, p0 = mesh_mod.fetch(self.mesh, [[row[:1] for row in r],
+                                            [row[:1] for row in p]])
         self._last_rsum_dev = torch.cat(
-            [row[0].sum(dim=0).to(dev) for row in r])[: len(sources)]
-        return collect_rows([row[:1] for row in p], dev)
+            [row[0].sum(dim=0).to(dev) for row in r0])[: len(sources)]
+        return collect_rows(p0, dev)
 
     def compute_whole_graph_batch(self, sources: np.ndarray, param
                                   ) -> np.ndarray:
@@ -229,7 +262,7 @@ class MeshNeo4jMethod(Neo4jMethod):
         # Neo4j damping = 1 - alpha (Neo4j_Method.java:75)
         x = self._kern.power_iterations(onehot, 1.0 - self.alpha, int(param))
         return _normalize(collect_rows([row[:1] for row in x],
-                                       self.graph.device))
+                                       self.graph.device, self.mesh))
 
     def compute_whole_graph_batch(self, sources: np.ndarray, param
                                   ) -> np.ndarray:
@@ -285,15 +318,17 @@ class MeshForaWholeGraph(ForaWholeGraph):
             t0 = time.perf_counter_ns()
             p, r, _ = kern.push(p, r, onehot, rmax)
             self.mesh.synchronize()
-            push_ns += (time.perf_counter_ns() - t0) / b
+            # across processes the slowest rank's clock decides for all
+            push_ns += self.mesh.agree_max(time.perf_counter_ns() - t0) / b
+            r0 = mesh_mod.fetch(self.mesh, [row[:1] for row in r])
             rsum_local = float(torch.cat(
-                [row[0].sum(dim=0).cpu() for row in r]).mean()) \
+                [row[0].sum(dim=0).cpu() for row in r0]).mean()) \
                 * (1.0 - self.alpha)
             rmax /= 2.0
             rounds += 1
         self.last_rounds, self.last_push_ns = rounds, push_ns
         p, r, self.last_iters = kern.propagate(p, r, onehot, target)
-        return collect_rows([row[:1] for row in p], g.device)
+        return collect_rows([row[:1] for row in p], g.device, self.mesh)
 
 
 class MeshMonteCarlo(MonteCarlo):
@@ -339,9 +374,10 @@ class MeshMonteCarlo(MonteCarlo):
                            np.broadcast_to(lane_w, (b, w)),
                            int(self._seeds.integers(1 << 31)))
             counts = c if counts is None else [
-                [x + y for x, y in zip(crow, nrow)]
+                [x if is_remote(x) else x + y for x, y in zip(crow, nrow)]
                 for crow, nrow in zip(counts, c)]
-        return collect_rows([row[:1] for row in counts], self.graph.device)
+        return collect_rows([row[:1] for row in counts], self.graph.device,
+                            self.mesh)
 
     def compute_whole_graph_batch(self, sources: np.ndarray, param
                                   ) -> np.ndarray:

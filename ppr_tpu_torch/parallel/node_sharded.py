@@ -40,7 +40,7 @@ from ..models.fora import _loop_constants
 from ..ops.spmv import _safe_inv_deg, gather_segment_sum
 from ..ops.walk import PHASE_STEPS
 from . import mesh as mesh_mod
-from .mesh import Mesh, ppermute, psum
+from .mesh import Mesh, is_remote, ppermute, psum
 
 _WIRE = {"f32": None, "bf16": torch.bfloat16}
 
@@ -232,29 +232,26 @@ def node_shards(g: Graph, mesh: Mesh,
     out_deg = g.out_deg.cpu().numpy()
     inv_deg = _safe_inv_deg(g.out_deg.cpu()).numpy()
     dang = g.dang_ids.cpu().numpy()
-    out = []
-    for row in mesh.devices:
-        shards = []
-        for s, dev in enumerate(row):
-            lo = s * n_local
-            blocks = []
-            for s_src in range(s_graph):
-                cnt = int(mask_b[s, s_src].sum())
-                blocks.append(make_block(
-                    src_b[s, s_src, :cnt], dst_b[s, s_src, :cnt],
-                    None if coef_b is None else coef_b[s, s_src, :cnt],
-                    n_local, dev))
-            local_dang = dang[(dang >= lo) & (dang < lo + n_local)] - lo
-            shards.append(NodeShard(
-                device=dev, base=lo, weighted=g.weighted, blocks=blocks,
-                inv_deg=torch.tensor(inv_deg[lo:lo + n_local], device=dev),
-                dang_ids=torch.tensor(local_dang.astype(np.int64),
-                                      device=dev),
-                out_deg=torch.tensor(out_deg[lo:lo + n_local], device=dev),
-                perm=None if col_perm is None else torch.tensor(
-                    col_perm[s].astype(np.int64), device=dev)))
-        out.append(shards)
-    return out
+
+    def shard(d, s, dev):
+        lo = s * n_local
+        blocks = []
+        for s_src in range(s_graph):
+            cnt = int(mask_b[s, s_src].sum())
+            blocks.append(make_block(
+                src_b[s, s_src, :cnt], dst_b[s, s_src, :cnt],
+                None if coef_b is None else coef_b[s, s_src, :cnt],
+                n_local, dev))
+        local_dang = dang[(dang >= lo) & (dang < lo + n_local)] - lo
+        return NodeShard(
+            device=dev, base=lo, weighted=g.weighted, blocks=blocks,
+            inv_deg=torch.tensor(inv_deg[lo:lo + n_local], device=dev),
+            dang_ids=torch.tensor(local_dang.astype(np.int64), device=dev),
+            out_deg=torch.tensor(out_deg[lo:lo + n_local], device=dev),
+            perm=None if col_perm is None else torch.tensor(
+                col_perm[s].astype(np.int64), device=dev))
+
+    return mesh.grid(shard)
 
 
 def put_nodes(mesh: Mesh, x_t) -> list[list[torch.Tensor]]:
@@ -264,13 +261,15 @@ def put_nodes(mesh: Mesh, x_t) -> list[list[torch.Tensor]]:
     x_t = torch.as_tensor(x_t)
     cols = mesh_mod.split(x_t.shape[1], mesh.data)
     rows = mesh_mod.split(x_t.shape[0], mesh.graph)
-    return [[x_t[r, c].contiguous().to(dev, copy=True)
-             for r, dev in zip(rows, drow)]
-            for c, drow in zip(cols, mesh.devices)]
+    return mesh.grid(lambda d, s, dev: x_t[rows[s], cols[d]].contiguous()
+                     .to(dev, copy=True))
 
 
-def gather_nodes(parts) -> torch.Tensor:
-    """The node-major ``[n_pad, B]`` of node-sharded parts, on the host."""
+def gather_nodes(parts, mesh: Mesh | None = None) -> torch.Tensor:
+    """The node-major ``[n_pad, B]`` of node-sharded parts, on the host
+    (every rank of a ``mesh`` across processes calls it and gets it)."""
+    if mesh is not None:
+        parts = mesh_mod.fetch(mesh, parts)
     return torch.cat([torch.cat([x.cpu() for x in row], dim=0)
                       for row in parts], dim=1)
 
@@ -288,22 +287,28 @@ def ring_push(devices, payloads, table_of, blocks_of, wire):
     """One sweep's ring: ``acc[s]`` sums, over hops ``t = 0 .. S-1``, block
     ``(s - t) mod S`` of shard ``s`` pushed from the payload visiting
     ``s`` at hop ``t`` (``table_of(payload)`` is its dense table). The
-    payloads (tuples of tensors) move one step after each hop but the
-    last; float parts travel as ``wire`` when it is set. Returns ``acc``
-    (``None`` where a shard had no edges at all)."""
+    payloads (tuples of tensors; :class:`~.mesh.Remote` at another rank's
+    positions) move one step after each hop but the last; float parts
+    travel as ``wire`` when it is set. Returns ``acc`` (``None`` where a
+    shard had no edges at all, the payload's :class:`~.mesh.Remote` at
+    another rank's position)."""
     n = len(devices)
-    acc = [None] * n
+    acc = [x if is_remote(x) else None for x in payloads]
     for t in range(n):
         for s in range(n):
+            if is_remote(payloads[s]):
+                continue
             add = blocks_of(s)[(s - t) % n].push(table_of(payloads[s]))
             if add is not None:
                 acc[s] = add if acc[s] is None else acc[s] + add
         if t < n - 1:
-            moved = [ppermute(list(part), devices,
-                              wire if part[0].is_floating_point() else None)
-                     for part in zip(*payloads)]
-            payloads = list(zip(*moved))
+            payloads = ppermute(payloads, devices, wire)
     return acc
+
+
+def _devices(shards) -> list:
+    """The ring's devices (``None`` at another rank's position)."""
+    return [None if is_remote(sh) else sh.device for sh in shards]
 
 
 def ring_sweep(shards, p, r, onehot, alpha: float, wire, live=None):
@@ -313,9 +318,13 @@ def ring_sweep(shards, p, r, onehot, alpha: float, wire, live=None):
     non-live flag leaves ``(p, r)`` as they were. Returns the new row
     lists."""
     alpha_f, keep, _, _ = _loop_constants(alpha, 0.0)
-    devices = [sh.device for sh in shards]
     chunks, dangs, p_new = [], [], []
     for s, sh in enumerate(shards):
+        if is_remote(sh):
+            p_new.append(sh)
+            dangs.append(sh)
+            chunks.append(sh)
+            continue
         if live is None:
             p_new.append(torch.add(p[s], r[s], alpha=alpha_f))
         else:
@@ -325,11 +334,14 @@ def ring_sweep(shards, p, r, onehot, alpha: float, wire, live=None):
         dangs.append(rem.index_select(0, sh.dang_ids)
                      .sum(dim=0, keepdim=True))
         chunks.append((rem if sh.weighted else rem * sh.inv_deg[:, None],))
-    acc = ring_push(devices, chunks, lambda pl: pl[0],
+    acc = ring_push(_devices(shards), chunks, lambda pl: pl[0],
                     lambda s: shards[s].blocks, wire)
     dang = psum(dangs)
     r_new = []
     for s, sh in enumerate(shards):
+        if is_remote(sh):
+            r_new.append(sh)
+            continue
         a = acc[s] if acc[s] is not None else torch.zeros_like(r[s])
         nxt = torch.addcmul(a, dang[s], onehot[s])
         r_new.append(nxt if live is None
@@ -357,10 +369,12 @@ def make_node_sharded_propagate_ring(mesh: Mesh, g: Graph, alpha: float,
         cols = mesh_mod.split(len(sources), mesh.data)
         p, r, onehot = [], [], []
         for c, row in zip(cols, shards):
-            oh = [local_onehot(sources[c], sh.base, n_local, sh.device)
+            oh = [sh if is_remote(sh) else
+                  local_onehot(sources[c], sh.base, n_local, sh.device)
                   for sh in row]
-            p.append([torch.zeros_like(x) for x in oh])
-            r.append([x.clone() for x in oh])
+            p.append([x if is_remote(x) else torch.zeros_like(x)
+                      for x in oh])
+            r.append([x if is_remote(x) else x.clone() for x in oh])
             onehot.append(oh)
         return p, r, onehot
 
@@ -390,21 +404,26 @@ def make_node_sharded_propagate(mesh: Mesh, g: Graph, alpha: float):
     dang = g.dang_ids.cpu()
     per_dev = {dev: (inv_deg.to(dev), dang.to(dev))
                for dev in mesh.unique_devices()}
-    blocks = [[make_block(src_sh[s], dst_sh[s],
-                          None if coef_sh is None else coef_sh[s],
-                          n_local, dev)
-               for s, dev in enumerate(row)] for row in mesh.devices]
+    blocks = mesh.grid(lambda d, s, dev: make_block(
+        src_sh[s], dst_sh[s], None if coef_sh is None else coef_sh[s],
+        n_local, dev))
     prepare, _ = make_node_sharded_propagate_ring(mesh, g, alpha)
 
     def step(p, r, onehot):
         p_out, r_out = [], []
         for d, row in enumerate(mesh.devices):
-            rems = [x * keep for x in r[d]]
-            p_out.append([torch.add(x, y, alpha=alpha_f)
+            rems = [x if is_remote(x) else x * keep for x in r[d]]
+            p_out.append([x if is_remote(x) else
+                          torch.add(x, y, alpha=alpha_f)
                           for x, y in zip(p[d], r[d])])
+            # one gather a row: every rank of the row makes it once
+            gathered = mesh_mod.all_gather(rems, 0)
             r_row = []
             for s, dev in enumerate(row):
-                full = mesh_mod.all_gather(rems, 0, device=dev)
+                if not mesh.is_local(d, s):
+                    r_row.append(mesh.remote(d, s))
+                    continue
+                full = gathered.to(dev)
                 inv, dang_ids = per_dev[dev]
                 dang_mass = full.index_select(0, dang_ids).sum(
                     dim=0, keepdim=True)
@@ -437,17 +456,10 @@ def csr_slices(g: Graph, mesh: Mesh):
         return torch.tensor(x if dtype is None else x.astype(dtype),
                             device=dev)
 
-    return [[(put(ip[s], dev, np.int64), put(idx[s], dev),
-              put(None if prob is None else prob[s], dev),
-              put(None if other is None else other[s], dev, np.int64))
-             for s, dev in enumerate(row)]
-            for row in mesh.devices], n_local
-
-
-def _rotate(slices, devices):
-    moved = [ppermute(list(part), devices) if part[0] is not None
-             else list(part) for part in zip(*slices)]
-    return list(zip(*moved))
+    return mesh.grid(lambda d, s, dev: (
+        put(ip[s], dev, np.int64), put(idx[s], dev),
+        put(None if prob is None else prob[s], dev),
+        put(None if other is None else other[s], dev, np.int64))), n_local
 
 
 def ring_move(devices, slices, cur, u, u2, need, starts, n_local: int):
@@ -462,7 +474,7 @@ def ring_move(devices, slices, cur, u, u2, need, starts, n_local: int):
     for t in range(n):
         for s in range(n):
             c = cur[s]
-            if c.numel() == 0:
+            if is_remote(c) or c.numel() == 0:
                 continue
             ip, idx, prob, other = slices[s]
             b0 = ((s - t) % n) * n_local
@@ -478,7 +490,7 @@ def ring_move(devices, slices, cur, u, u2, need, starts, n_local: int):
                 slot = torch.where(accept, slot, other.index_select(0, slot))
             cand = torch.where(deg > 0, idx.index_select(0, slot), starts[s])
             nxt[s] = torch.where(here, cand, nxt[s])
-        slices = _rotate(slices, devices)
+        slices = ppermute(slices, devices)
     return nxt, slices
 
 
@@ -497,25 +509,30 @@ def ring_walks(mesh: Mesh, slices, walkers, generators, alpha: float,
     every ``PHASE_STEPS`` steps; a step with none changes nothing. Counts
     are added in float64 and returned as f32 ``[data][graph]`` parts
     ``[n_local, b_local]``."""
-    weighted = slices[0][0][2] is not None
+    weighted = next(x for row in slices for x in row
+                    if not is_remote(x))[2] is not None
     slices = [list(row) for row in slices]
     cur, active = [], []
     for row in walkers:
-        cur.append([w[0] for w in row])
-        active.append([torch.ones_like(w[0], dtype=torch.bool)
-                       for w in row])
+        cur.append([w if is_remote(w) else w[0] for w in row])
+        active.append([w if is_remote(w) else
+                       torch.ones_like(w[0], dtype=torch.bool) for w in row])
 
     def draws(d):
         us, u2s = [], []
-        for s, (st, _, _) in enumerate(walkers[d]):
-            gen = generators[d][s]
+        for s, w in enumerate(walkers[d]):
+            if is_remote(w):
+                us.append(w)
+                u2s.append(w)
+                continue
+            st, gen = w[0], generators[d][s]
             us.append(torch.rand(st.shape[0], generator=gen,
                                  device=st.device))
             u2s.append(torch.rand(st.shape[0], generator=gen,
                                   device=st.device) if weighted else None)
         return us, u2s
 
-    starts = [[w[0] for w in row] for row in walkers]
+    starts = [list(row) for row in cur]
     if no_zero_hop:
         for d, row in enumerate(mesh.devices):
             u, u2 = draws(d)
@@ -524,25 +541,30 @@ def ring_walks(mesh: Mesh, slices, walkers, generators, alpha: float,
     for step in range(max_steps):
         for d, row in enumerate(mesh.devices):
             u, u2 = draws(d)
-            go = [a & (x >= alpha) for a, x in zip(active[d], u)]
-            u_move = [(x - alpha) * (1.0 / (1.0 - alpha)) for x in u]
+            go = [x if is_remote(x) else a & (x >= alpha)
+                  for a, x in zip(active[d], u)]
+            u_move = [x if is_remote(x) else
+                      (x - alpha) * (1.0 / (1.0 - alpha)) for x in u]
             nxt, slices[d] = ring_move(row, slices[d], cur[d], u_move, u2,
                                        go, starts[d], n_local)
-            cur[d] = [torch.where(g_, x, c) for g_, x, c in
-                      zip(go, nxt, cur[d])]
+            cur[d] = [c if is_remote(c) else torch.where(g_, x, c)
+                      for g_, x, c in zip(go, nxt, cur[d])]
             active[d] = go
         if (step + 1) % PHASE_STEPS == 0 and not bool(mesh_mod.pmax(
-                [a.any().to(torch.int32) for row in active
-                 for a in row])[0]):
+                [a if is_remote(a) else a.any().to(torch.int32)
+                 for row in active for a in row], mesh)[0]):
             break
 
     out = []
     for d, row in enumerate(mesh.devices):
         n = len(row)
         counts = [torch.zeros(n_local * b_local, dtype=torch.float64,
-                              device=dev) for dev in row]
+                              device=dev) if mesh.is_local(d, s)
+                  else mesh.remote(d, s) for s, dev in enumerate(row)]
         for t in range(n):
             for s in range(n):
+                if is_remote(cur[d][s]):
+                    continue
                 stops, cols, w = cur[d][s], walkers[d][s][1], walkers[d][s][2]
                 if stops.numel():
                     b0 = ((s - t) % n) * n_local
@@ -552,7 +574,8 @@ def ring_walks(mesh: Mesh, slices, walkers, generators, alpha: float,
                         0, lv * b_local + cols,
                         torch.where(here, w.to(torch.float64), 0.0))
             counts = ppermute(counts, row)
-        out.append([c.view(n_local, b_local).to(torch.float32)
+        out.append([c if is_remote(c) else
+                    c.view(n_local, b_local).to(torch.float32)
                     for c in counts])
     return out
 
@@ -573,18 +596,16 @@ def make_node_sharded_walk_counts(mesh: Mesh, g: Graph, alpha: float,
         rows_of = mesh_mod.split(starts.shape[0], mesh.data)
         cols_of = mesh_mod.split(starts.shape[1], mesh.graph)
         b_l = starts.shape[0] // mesh.data
-        walkers = []
-        for rs, row in zip(rows_of, mesh.devices):
-            wrow = []
-            for cs, dev in zip(cols_of, row):
-                st = starts[rs, cs]
-                wrow.append((
-                    torch.as_tensor(st.reshape(-1), device=dev),
+
+        def walkers_of(d, s, dev):
+            st = starts[rows_of[d], cols_of[s]]
+            return (torch.as_tensor(st.reshape(-1), device=dev),
                     torch.arange(b_l, device=dev).repeat_interleave(
                         st.shape[1]),
-                    torch.as_tensor(weights[rs, cs].reshape(-1),
-                                    device=dev)))
-            walkers.append(wrow)
+                    torch.as_tensor(weights[rows_of[d], cols_of[s]]
+                                    .reshape(-1), device=dev))
+
+        walkers = mesh.grid(walkers_of)
         return ring_walks(mesh, slices, walkers,
                           mesh_mod.shard_generators(mesh, seed), alpha,
                           max_steps, n_local, b_l)

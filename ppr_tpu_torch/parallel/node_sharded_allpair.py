@@ -35,9 +35,9 @@ from ..graph.csr import Graph
 from ..ops.push import _f32, _run_sweeps
 from ..ops.spmv import _safe_inv_deg
 from . import mesh as mesh_mod
-from .mesh import Mesh, make_mesh
-from .node_sharded import Block, _check_split, _lanes, local_onehot, \
-    make_block, ring_push
+from .mesh import Mesh, is_remote, make_mesh
+from .node_sharded import Block, _check_split, _devices, _lanes, \
+    local_onehot, make_block, ring_push
 from .sharded import collect_rows
 from .sharded_allpair import MeshBaseAllPair
 from .sharded_fora import pad_batch
@@ -105,25 +105,23 @@ def reverse_shards(g: Graph, mesh: Mesh) -> list[list[ReverseShard]]:
         g, mesh.graph)
     inv_deg = _safe_inv_deg(g.out_deg.cpu()).numpy()
     live = g.node_mask.cpu().numpy() > 0
-    out = []
-    for row in mesh.devices:
-        shards = []
-        for d, dev in enumerate(row):
-            lo = d * n_local
-            blocks = []
-            for s in range(mesh.graph):
-                cnt = int(mask_b[d, s].sum())
-                # gathered at the destination, summed by the source
-                blocks.append(make_block(
-                    dst_b[d, s, :cnt], src_b[d, s, :cnt],
-                    None if coef_b is None else coef_b[d, s, :cnt],
-                    n_local, dev))
-            shards.append(ReverseShard(
-                device=dev, base=lo, weighted=g.weighted, blocks=blocks,
-                inv_deg=torch.tensor(inv_deg[lo:lo + n_local], device=dev),
-                live=torch.tensor(live[lo:lo + n_local], device=dev)[:, None]))
-        out.append(shards)
-    return out
+
+    def shard(_, d, dev):
+        lo = d * n_local
+        blocks = []
+        for s in range(mesh.graph):
+            cnt = int(mask_b[d, s].sum())
+            # gathered at the destination, summed by the source
+            blocks.append(make_block(
+                dst_b[d, s, :cnt], src_b[d, s, :cnt],
+                None if coef_b is None else coef_b[d, s, :cnt],
+                n_local, dev))
+        return ReverseShard(
+            device=dev, base=lo, weighted=g.weighted, blocks=blocks,
+            inv_deg=torch.tensor(inv_deg[lo:lo + n_local], device=dev),
+            live=torch.tensor(live[lo:lo + n_local], device=dev)[:, None])
+
+    return mesh.grid(shard)
 
 
 def make_node_sharded_backward(mesh: Mesh, g: Graph, *, alpha: float,
@@ -146,28 +144,37 @@ def make_node_sharded_backward(mesh: Mesh, g: Graph, *, alpha: float,
         cols = mesh_mod.split(len(targets), mesh.data)
         p, r, onehot = [], [], []
         for c, row in zip(cols, shards):
-            oh = [local_onehot(targets[c], sh.base, n_local, sh.device)
+            oh = [sh if is_remote(sh) else
+                  local_onehot(targets[c], sh.base, n_local, sh.device)
                   for sh in row]
             onehot.append(oh)
             r.append(list(oh))
-            p.append([torch.zeros_like(x) for x in oh])
+            p.append([x if is_remote(x) else torch.zeros_like(x)
+                      for x in oh])
 
         def step(p, r):
             p_out, r_out, anys = [], [], []
             for d, row in enumerate(shards):
                 acts, chunks, pd = [], [], []
                 for s, sh in enumerate(row):
+                    if is_remote(sh):
+                        for out in (acts, chunks, pd):
+                            out.append(sh)
+                        continue
                     active = (r[d][s] > gate) & sh.live
                     a = torch.where(active, r[d][s], 0.0)
                     pd.append(p[d][s] + alpha_f * a)
                     chunks.append((keep * a,))   # circulates the ring
                     acts.append(a)
                     anys.append(active.any().to(torch.int32))
-                acc = ring_push([sh.device for sh in row], chunks,
+                acc = ring_push(_devices(row), chunks,
                                 lambda pl: pl[0], lambda s: row[s].blocks,
                                 None)
                 rd = []
                 for s, sh in enumerate(row):
+                    if is_remote(sh):
+                        rd.append(sh)
+                        continue
                     pulled = acc[s] if acc[s] is not None \
                         else torch.zeros_like(acts[s])
                     if not sh.weighted:
@@ -175,15 +182,16 @@ def make_node_sharded_backward(mesh: Mesh, g: Graph, *, alpha: float,
                     rd.append(r[d][s] - acts[s] + pulled)
                 p_out.append(pd)
                 r_out.append(rd)
-            return p_out, r_out, mesh_mod.pmax(anys)[0] > 0
+            return p_out, r_out, mesh_mod.pmax(anys, mesh)[0] > 0
 
         p, r, used = _run_sweeps(step, p, r, max_sweeps)
         # the in-degree-0 target short-circuit (Backward_Search.java:46-49)
         for d, (c, row) in enumerate(zip(cols, shards)):
             zero = torch.as_tensor(in_deg[targets[c]] == 0)
             for s, sh in enumerate(row):
-                p[d][s] = torch.where(zero.to(sh.device)[None, :],
-                                      onehot[d][s], p[d][s])
+                if not is_remote(sh):
+                    p[d][s] = torch.where(zero.to(sh.device)[None, :],
+                                          onehot[d][s], p[d][s])
         return p, used
 
     return run, shards
@@ -223,7 +231,7 @@ class NodeShardedBackwardSearch:
         ``len(targets)`` are padding."""
         parts = self.whole_graph_shards(targets)
         t0 = time.perf_counter_ns()
-        out = collect_rows(parts, self.graph.device)
+        out = collect_rows(parts, self.graph.device, self.mesh)
         self.mesh.synchronize()
         self.duration_ns += time.perf_counter_ns() - t0
         return out

@@ -48,8 +48,8 @@ from ..models.fora import (MAX_TOPK_SWEEPS, _loop_constants,
                            _whole_graph_walk_setup, topk_kcap)
 from ..ops.walk import default_max_steps, expand_walkers
 from . import mesh as mesh_mod
-from .mesh import Mesh, make_mesh, psum
-from .node_sharded import (csr_slices, gather_nodes, local_onehot,
+from .mesh import Mesh, is_remote, make_mesh, psum
+from .node_sharded import (_devices, csr_slices, gather_nodes, local_onehot,
                            make_node_sharded_propagate_ring, node_shards,
                            ring_push, ring_sweep, ring_walks, wire_dtype)
 from .sharded import run_annealed
@@ -75,11 +75,17 @@ def _frontier_sweep(shards, p, r, onehot, live, alpha: float, wire,
     ``c`` of its ``nb`` blocks that carry the most residue and sends only
     those around the ring; the rest of its residue stays in place."""
     alpha_f, keep, _, _ = _loop_constants(alpha, 0.0)
-    n_local = r[0].shape[0]
+    mine = [x for x in r if not is_remote(x)]
+    if not mine:        # another rank's row
+        return list(p), list(r)
+    n_local = mine[0].shape[0]
     pad = nb * blk - n_local
-    devices = [sh.device for sh in shards]
     payloads, masks, dangs, p_new = [], [], [], []
     for s, sh in enumerate(shards):
+        if is_remote(sh):
+            for out in (payloads, masks, dangs, p_new):
+                out.append(sh)
+            continue
         b_l = r[s].shape[1]
         r_basis = r[s] if sh.perm is None else r[s].index_select(0, sh.perm)
         mass = torch.nn.functional.pad(r_basis, (0, 0, 0, pad)) \
@@ -110,11 +116,14 @@ def _frontier_sweep(shards, p, r, onehot, live, alpha: float, wire,
         dense.index_copy_(0, sel, comp)
         return dense.view(nb * blk, -1)[:n_local]
 
-    acc = ring_push(devices, payloads, table, lambda s: shards[s].blocks,
-                    wire)
+    acc = ring_push(_devices(shards), payloads, table,
+                    lambda s: shards[s].blocks, wire)
     dang = psum(dangs)
     r_new = []
     for s, sh in enumerate(shards):
+        if is_remote(sh):
+            r_new.append(sh)
+            continue
         kept = r[s] * (1.0 - masks[s])
         a = kept if acc[s] is None else kept + acc[s]
         nxt = torch.addcmul(a, dang[s], onehot[s])
@@ -157,16 +166,19 @@ def make_node_sharded_annealed_topk(
         p, r, onehot, deg_src = [], [], [], []
         for cs, row in zip(cols, shards):
             srcs = sources[cs]
-            oh = [local_onehot(srcs, sh.base, n_local, sh.device)
+            oh = [sh if is_remote(sh) else
+                  local_onehot(srcs, sh.base, n_local, sh.device)
                   for sh in row]
             dangling = out_deg[srcs] == 0
             # dangling-source rows start (and stay) at zero; the epilogue
             # short-circuits them to e_s (Fora_Topk.java:128-132)
-            deg_src.append([torch.as_tensor(dangling, device=sh.device)
+            deg_src.append([sh if is_remote(sh) else
+                            torch.as_tensor(dangling, device=sh.device)
                             for sh in row])
-            r.append([torch.where(z[None, :], 0.0, x)
+            r.append([x if is_remote(x) else torch.where(z[None, :], 0.0, x)
                       for z, x in zip(deg_src[-1], oh)])
-            p.append([torch.zeros_like(x) for x in oh])
+            p.append([x if is_remote(x) else torch.zeros_like(x)
+                      for x in oh])
             onehot.append(oh)
 
         def sweep(live):
@@ -182,9 +194,14 @@ def make_node_sharded_annealed_topk(
         def stats(thresh):
             rsum, done = [], []
             for d, row in enumerate(shards):
-                rows = psum([x.sum(dim=0) for x in r[d]])[0]
-                cnt = psum([(x >= thresh[sh.device]).sum(dim=0)
-                            for x, sh in zip(p[d], row)])[0]
+                s = mesh.speaker(d)
+                if s is None:
+                    continue
+                rows = psum([x if is_remote(x) else x.sum(dim=0)
+                             for x in r[d]])[s]
+                cnt = psum([x if is_remote(x) else
+                            (x >= thresh[sh.device]).sum(dim=0)
+                            for x, sh in zip(p[d], row)])[s]
                 rsum.append(rows.max())
                 done.append((cnt >= k).all())
             return rsum, done
@@ -195,20 +212,29 @@ def make_node_sharded_annealed_topk(
         vals, ids, p_local = [], [], []
         kc = min(kcap, n_local)
         for d, row in enumerate(shards):
-            finals = [torch.where(z[None, :], oh, x) for z, oh, x in
-                      zip(deg_src[d], onehot[d], p[d])]
+            finals = [x if is_remote(x) else torch.where(z[None, :], oh, x)
+                      for z, oh, x in zip(deg_src[d], onehot[d], p[d])]
             cand_v, cand_i = [], []
             for sh, x in zip(row, finals):
+                if is_remote(sh):
+                    cand_v.append(sh)
+                    cand_i.append(sh)
+                    continue
                 v, i = torch.topk(x, kc, dim=0)
                 cand_v.append(v)
                 cand_i.append(i + sh.base)
+            p_local.append(finals)
             # shard order keeps the candidates of a tie in node order
             all_v = mesh_mod.all_gather(cand_v, 0)
             all_i = mesh_mod.all_gather(cand_i, 0)
+            if is_remote(row[0]):
+                # the row's selection is its first shard's to hand out
+                vals.append(row[0])
+                ids.append(row[0])
+                continue
             v, sel = torch.topk(all_v, min(kcap, all_v.shape[0]), dim=0)
             vals.append(v.T)
             ids.append(all_i.gather(0, sel).T)
-            p_local.append(finals)
         return vals, ids, p_local, iters
 
     return fn, shards
@@ -278,6 +304,7 @@ class NodeShardedForaTopk:
         sources_p, b = self._pad_batch(sources)
         kcap = topk_kcap(k, g.n_pad, kcap)
         vals, ids, _, _ = self._run(sources_p, k, kcap, eps)
+        vals, ids = mesh_mod.fetch(self.mesh, [vals, ids])
         return (torch.cat([v.cpu() for v in vals]).numpy()[:b],
                 torch.cat([i.cpu() for i in ids]).numpy()[:b])
 
@@ -292,7 +319,7 @@ class NodeShardedForaTopk:
         sources_p, b = self._pad_batch(sources)
         _, _, p_local, _ = self._run(sources_p, k,
                                      topk_kcap(k, g.n_pad), eps)
-        return gather_nodes(p_local).T.numpy()[:b]
+        return gather_nodes(p_local, self.mesh).T.numpy()[:b]
 
     def final_state_shard_shape(self, batch: int) -> tuple[int, int]:
         """A shard's reserve, node-major: ``(n_pad / graph, B_pad /
@@ -313,9 +340,10 @@ def make_node_sharded_walk_totals(mesh: Mesh, g: Graph, alpha: float):
     _, keep, _, _ = _loop_constants(alpha, 0.0)
 
     def fn(r, omega):
-        return np.array([[int(_whole_graph_walk_setup(x * keep, omega)[0]
-                              .sum(dtype=torch.int64)) for x in row]
-                         for row in r], np.int64)
+        totals = mesh_mod.fetch(mesh, [[
+            x if is_remote(x) else _whole_graph_walk_setup(x * keep, omega)[0]
+            .sum(dtype=torch.int64) for x in row] for row in r])
+        return np.array([[int(x) for x in row] for row in totals], np.int64)
 
     return fn
 
@@ -336,11 +364,16 @@ def make_node_sharded_walk_completion(mesh: Mesh, g: Graph, alpha: float,
     slices, n_local = csr_slices(g, mesh)
 
     def fn(p, r, generators, omega):
-        b_l = r[0][0].shape[1]
+        b_l = next(x for row in r for x in row
+                   if not is_remote(x)).shape[1]
         walkers, p_new = [], []
         for prow, rrow, row in zip(p, r, mesh.devices):
             wrow, prow_new = [], []
             for s, (x, y, dev) in enumerate(zip(prow, rrow, row)):
+                if is_remote(x):
+                    wrow.append(x)
+                    prow_new.append(x)
+                    continue
                 om, w = _whole_graph_walk_setup(y * keep, omega)
                 prow_new.append(torch.add(x, y, alpha=alpha_f))
                 flat = om.reshape(-1)
@@ -356,7 +389,7 @@ def make_node_sharded_walk_completion(mesh: Mesh, g: Graph, alpha: float,
             p_new.append(prow_new)
         counts = ring_walks(mesh, slices, walkers, generators, alpha,
                             max_steps, n_local, b_l, no_zero_hop=True)
-        return [[x + c for x, c in zip(prow, crow)]
+        return [[x if is_remote(x) else x + c for x, c in zip(prow, crow)]
                 for prow, crow in zip(p_new, counts)]
 
     return fn
@@ -443,7 +476,7 @@ class NodeShardedForaWholeGraph:
                     self.mesh, g, self.alpha)
             p = self._walks(p, r, self.generators, omega)
         self.last_iters = iters
-        out = gather_nodes(p).T.numpy().copy()
+        out = gather_nodes(p, self.mesh).T.numpy().copy()
         # a dangling source never leaves itself: pi(s, s) = 1 exactly
         deg_src = g.out_deg.cpu().numpy()[src_pad]
         rows = np.nonzero(deg_src == 0)[0]

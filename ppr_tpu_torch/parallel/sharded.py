@@ -33,7 +33,7 @@ from ..models.fora import CHECK_EVERY, _loop_constants
 from ..ops.spmv import _safe_inv_deg, gather_segment_sum
 from ..ops.walk import weighted_walk_counts
 from . import mesh as mesh_mod
-from .mesh import Mesh, psum
+from .mesh import Mesh, is_remote, psum
 
 _GRAPH_FIELDS = ("indptr", "indices", "edge_src", "edge_dst", "edge_mask",
                  "edge_src_bydst", "edge_dst_bydst", "out_deg", "in_deg",
@@ -83,27 +83,23 @@ def _chunks(g: Graph, mesh: Mesh, rows, ptr, coef) -> list[list[EdgeChunk]]:
     """``[data][graph]`` chunks of ``m_pad`` edges sorted by segment:
     shard ``(d, s)`` holds chunk ``s`` of ``graph`` equal chunks (the JAX
     package's ``P("graph")`` split), replicated over ``data``."""
-    s_graph = mesh.graph
     out_deg = g.out_deg.cpu().numpy()
     inv_deg = _safe_inv_deg(g.out_deg.cpu()).numpy()
     dang = g.dang_ids.cpu().numpy()
-    size = -(-g.m_pad // s_graph)
-    out = []
-    for row in mesh.devices:
-        chunks = []
-        for s, dev in enumerate(row):
-            lo, hi = min(s * size, g.m_pad), min((s + 1) * size, g.m_pad)
+    size = -(-g.m_pad // mesh.graph)
 
-            def put(x):
-                return torch.tensor(np.ascontiguousarray(x), device=dev)
+    def chunk(d, s, dev):
+        lo, hi = min(s * size, g.m_pad), min((s + 1) * size, g.m_pad)
 
-            chunks.append(EdgeChunk(
-                src=put(rows[lo:hi]), ptr=put(np.clip(ptr, lo, hi) - lo),
-                coef=None if coef is None else put(coef[lo:hi]),
-                inv_deg=put(inv_deg), dang_ids=put(dang),
-                out_deg=put(out_deg)))
-        out.append(chunks)
-    return out
+        def put(x):
+            return torch.tensor(np.ascontiguousarray(x), device=dev)
+
+        return EdgeChunk(
+            src=put(rows[lo:hi]), ptr=put(np.clip(ptr, lo, hi) - lo),
+            coef=None if coef is None else put(coef[lo:hi]),
+            inv_deg=put(inv_deg), dang_ids=put(dang), out_deg=put(out_deg))
+
+    return mesh.grid(chunk)
 
 
 def edge_chunks(g: Graph, mesh: Mesh) -> list[list[EdgeChunk]]:
@@ -141,9 +137,8 @@ def shard_graph(g: Graph, mesh: Mesh) -> list[list[GraphShard]]:
     (``ppr_tpu/parallel/sharded.py:58``)."""
     arrays = host_arrays(g)
     chunks = edge_chunks(g, mesh)
-    return [[GraphShard(graph_from_numpy(arrays, device=dev), chunk)
-             for dev, chunk in zip(row, crow)]
-            for row, crow in zip(mesh.devices, chunks)]
+    return mesh.grid(lambda d, s, dev: GraphShard(
+        graph_from_numpy(arrays, device=dev), chunks[d][s]))
 
 
 def put_columns(mesh: Mesh, x_t):
@@ -152,21 +147,28 @@ def put_columns(mesh: Mesh, x_t):
     its own on every device of its row."""
     x_t = torch.as_tensor(x_t)
     cols = mesh_mod.split(x_t.shape[1], mesh.data)
-    return [[x_t[:, c].contiguous().to(dev, copy=True) for dev in row]
-            for c, row in zip(cols, mesh.devices)]
+    return mesh.grid(lambda d, s, dev: x_t[:, cols[d]].contiguous()
+                     .to(dev, copy=True))
 
 
-def gather_columns(parts) -> torch.Tensor:
+def gather_columns(parts, mesh: Mesh | None = None) -> torch.Tensor:
     """The node-major ``[n_pad, B]`` of replicated column parts, on the
-    host (graph shard 0 of each data row)."""
-    return torch.cat([row[0].cpu() for row in parts], dim=1)
+    host (graph shard 0 of each data row; every rank of a ``mesh`` across
+    processes calls it and gets it)."""
+    rows = [row[:1] for row in parts]
+    if mesh is not None:
+        rows = mesh_mod.fetch(mesh, rows)
+    return torch.cat([row[0].cpu() for row in rows], dim=1)
 
 
-def collect_rows(parts, device) -> torch.Tensor:
+def collect_rows(parts, device, mesh: Mesh | None = None) -> torch.Tensor:
     """Batch-major ``[B, n_pad]`` on ``device``, contiguous, from
     ``[data][graph]`` node-major parts: each data row's column block is
     its parts stacked in shard order (pass ``[row[:1] for row in parts]``
-    where a row's parts are replicas)."""
+    where a row's parts are replicas). Across processes every rank of
+    ``mesh`` calls it and gets the whole."""
+    if mesh is not None:
+        parts = mesh_mod.fetch(mesh, parts)
     cols = [torch.cat([x.to(device) for x in row], dim=0) for row in parts]
     return torch.cat(cols, dim=1).T.contiguous()
 
@@ -190,12 +192,14 @@ def run_annealed(mesh: Mesh, sweep, stats, *, eps: float, delta0: float,
     a device (``{device: tensor}``); a sweep with ``live`` false must leave
     the state as it was. ``stats(thresh)`` returns, for each data row, the
     row's largest column residue sum and whether every column of the row
-    counts ``k`` reserves at or above ``thresh`` (0-dim tensors). The
-    flags are combined on the mesh's first device (``pmax`` / ``pmin``
-    over ``data``) and handed to every device, so every shard runs the
-    same sweeps; the host reads ``finished`` every ``CHECK_EVERY`` sweeps,
-    and the loop stops on the sweep of the JAX package's
-    ``lax.while_loop``."""
+    counts ``k`` reserves at or above ``thresh`` (0-dim tensors, for the
+    rows this rank holds a shard of). The
+    flags are combined on the mesh's first device (one ``pmax`` over
+    ``data`` a sweep, across processes too) and handed to every device, so
+    every shard runs the same sweeps; the host reads ``finished`` every
+    ``CHECK_EVERY`` sweeps (across processes on gloo's host wire it also
+    waits on the card at every ``pmax``), and the loop stops on the sweep
+    of the JAX package's ``lax.while_loop``."""
     _, _, eps_f, thresh_scale = _loop_constants(alpha, eps)
     dev = mesh.controller
     delta = torch.tensor(delta0, dtype=torch.float32, device=dev)
@@ -205,8 +209,11 @@ def run_annealed(mesh: Mesh, sweep, stats, *, eps: float, delta0: float,
         live = ~finished
         sweep(mesh_mod.broadcast(live, mesh))
         rsum, done = stats(mesh_mod.broadcast(thresh_scale * delta, mesh))
-        rsum_max = mesh_mod.pmax(rsum)[0]
-        every = mesh_mod.pmin([x.to(torch.int32) for x in done])[0] > 0
+        # one collective: the largest residue sum, and min(done) as
+        # -max(-done)
+        flags = mesh_mod.pmax([torch.stack([x, -y.to(x.dtype)])
+                               for x, y in zip(rsum, done)], mesh)[0]
+        rsum_max, every = flags[0], flags[1] < 0
         settled = live & (rsum_max <= eps_f * delta)
         finished = finished | (settled & every) \
             | (settled & (delta <= min_delta))
@@ -239,6 +246,11 @@ def make_sharded_push_sweeps(mesh: Mesh, alpha: float, num_sweeps: int):
             for d, shards in enumerate(gs):
                 partials, acts, dangs = [], [], []
                 for s, sh in enumerate(shards):
+                    if is_remote(sh):
+                        partials.append(sh)
+                        acts.append(sh)
+                        dangs.append(sh)
+                        continue
                     g = sh.graph
                     deg = g.out_deg[:, None]
                     live = (g.node_mask > 0)[:, None]
@@ -253,9 +265,10 @@ def make_sharded_push_sweeps(mesh: Mesh, alpha: float, num_sweeps: int):
                     acts.append(a)
                     partials.append(sh.chunk.push(keep * (a - a_dang)))
                 pushed = psum(partials)
-                for s in range(len(shards)):
-                    r[d][s] = (r[d][s] - acts[s] + pushed[s]
-                               + (keep * dangs[s]) * src_t[d][s])
+                for s, sh in enumerate(shards):
+                    if not is_remote(sh):
+                        r[d][s] = (r[d][s] - acts[s] + pushed[s]
+                                   + (keep * dangs[s]) * src_t[d][s])
         return p, r
 
     return run
@@ -282,6 +295,9 @@ def make_sharded_walk_counts(mesh: Mesh, alpha: float,
         for d, shards in enumerate(gs):
             parts = []
             for s, sh in enumerate(shards):
+                if is_remote(sh):
+                    parts.append(sh)
+                    continue
                 dev = sh.graph.device
                 st = starts[rows_of[d], cols_of[s]]
                 b_l, w_l = st.shape
@@ -317,13 +333,13 @@ def sharded_fora_step(mesh: Mesh, g: Graph, alpha: float = 0.15,
 
     def step(p, r, src_t, rmax, seed):
         p, r = push(gs, p, r, src_t, rmax)
-        rsum = gather_columns(r).sum(dim=0).numpy()
+        rsum = gather_columns(r, mesh).sum(dim=0).numpy()
         weights = np.broadcast_to((rsum / walkers_per_row)[:, None],
                                   (b, walkers_per_row))
         counts = walk(gs, starts, weights, seed)
         # plain walks realise the alpha-stop at their origin, so the walk
         # estimate covers the whole residue
-        return [[x + c for x, c in zip(prow, crow)]
+        return [[x if is_remote(x) else x + c for x, c in zip(prow, crow)]
                 for prow, crow in zip(p, counts)], r
 
     src = onehot_t(sources, g.n_pad, "cpu")

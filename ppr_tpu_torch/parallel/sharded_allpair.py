@@ -38,7 +38,7 @@ from ..graph.csr import Graph
 from ..models.base_allpair import BaseAllPair
 from ..ops.push import _f32, _run_sweeps
 from . import mesh as mesh_mod
-from .mesh import Mesh, make_mesh, psum
+from .mesh import Mesh, is_remote, make_mesh, psum
 from .sharded import collect_rows, edge_chunks_bysrc, onehot_t
 from .sharded_fora import pad_batch
 
@@ -67,16 +67,23 @@ def make_sharded_backward_sweeps(mesh: Mesh, g: Graph, *, alpha: float,
         cols = mesh_mod.split(len(targets), mesh.data)
         p, r, onehot = [], [], []
         for c, row in zip(cols, chunks):
-            oh = [onehot_t(targets[c], g.n_pad, ch.src.device) for ch in row]
+            oh = [ch if is_remote(ch) else
+                  onehot_t(targets[c], g.n_pad, ch.src.device) for ch in row]
             onehot.append(oh)
             r.append(list(oh))
-            p.append([torch.zeros_like(x) for x in oh])
+            p.append([x if is_remote(x) else torch.zeros_like(x)
+                      for x in oh])
 
         def step(p, r):
             p_out, r_out, anys = [], [], []
             for d, row in enumerate(chunks):
                 acts, partials, pd = [], [], []
+                speaker = mesh.speaker(d)
                 for s, ch in enumerate(row):
+                    if is_remote(ch):
+                        for out in (acts, partials, pd):
+                            out.append(ch)
+                        continue
                     r_ = r[d][s]
                     active = (r_ > gate) & live[ch.src.device]
                     a = torch.where(active, r_, 0.0)
@@ -85,25 +92,29 @@ def make_sharded_backward_sweeps(mesh: Mesh, g: Graph, *, alpha: float,
                     # destinations, sum by source
                     partials.append(ch.gather(keep * a))
                     acts.append(a)
-                    if s == 0:        # the graph replicas agree
+                    if s == speaker:      # the graph replicas agree
                         anys.append(active.any().to(torch.int32))
                 pulled = psum(partials)
                 rd = []
                 for s, ch in enumerate(row):
+                    if is_remote(ch):
+                        rd.append(ch)
+                        continue
                     pl = pulled[s] if ch.coef is not None \
                         else pulled[s] * ch.inv_deg[:, None]
                     rd.append(r[d][s] - acts[s] + pl)
                 p_out.append(pd)
                 r_out.append(rd)
-            return p_out, r_out, mesh_mod.pmax(anys)[0] > 0
+            return p_out, r_out, mesh_mod.pmax(anys, mesh)[0] > 0
 
         p, r, used = _run_sweeps(step, p, r, max_sweeps)
         # the in-degree-0 target short-circuit (Backward_Search.java:46-49)
         for d, (c, row) in enumerate(zip(cols, chunks)):
             zero = torch.as_tensor(in_deg[targets[c]] == 0)
             for s, ch in enumerate(row):
-                p[d][s] = torch.where(zero.to(ch.src.device)[None, :],
-                                      onehot[d][s], p[d][s])
+                if not is_remote(ch):
+                    p[d][s] = torch.where(zero.to(ch.src.device)[None, :],
+                                          onehot[d][s], p[d][s])
         return p, used
 
     return run, chunks
@@ -140,7 +151,8 @@ class ShardedBackwardSearch:
         t0 = time.perf_counter_ns()
         padded, _ = pad_batch(targets, self.mesh.data, self.mesh.data)
         parts, self.last_sweeps = self._run(padded, self.rmax)
-        out = collect_rows([row[:1] for row in parts], self.graph.device)
+        out = collect_rows([row[:1] for row in parts], self.graph.device,
+                           self.mesh)
         self.mesh.synchronize()
         self.duration_ns += time.perf_counter_ns() - t0
         return out

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from ..models.fora import MAX_TOPK_SWEEPS, _loop_constants, topk_kcap
-from .mesh import Mesh, make_mesh, psum
+from . import mesh as mesh_mod
+from .mesh import Mesh, is_remote, make_mesh, psum
 from .sharded import EdgeChunk, edge_chunks, onehot_t, run_annealed
 
 
@@ -57,7 +58,8 @@ def make_sharded_annealed_topk(mesh: Mesh, chunks: list[list[EdgeChunk]],
     ``src`` are ``[data][graph]`` node-major parts (:func:`prepare_state`)
     and are not written in place; ``eps`` is ``eps'``. ``vals`` and ``ids``
     are each data row's ``[B/data, kcap]`` on the row's first device,
-    ``p_final`` the rows' short-circuited reserves ``[n_pad, B/data]``, and
+    ``p_final`` the rows' short-circuited reserves ``[n_pad, B/data]``
+    (:class:`~.mesh.Remote` where another rank owns that device), and
     ``iters`` the sweep count."""
     alpha_f, keep, _, _ = _loop_constants(alpha, 0.0)
 
@@ -69,6 +71,10 @@ def make_sharded_annealed_topk(mesh: Mesh, chunks: list[list[EdgeChunk]],
             for d, row in enumerate(chunks):
                 partials, dangs = [], []
                 for s, ch in enumerate(row):
+                    if is_remote(ch):
+                        partials.append(ch)
+                        dangs.append(ch)
+                        continue
                     lv = live[ch.src.device]
                     # a frozen sweep adds r * 0: p is unchanged bit for bit
                     p[d][s] = torch.addcmul(p[d][s], r[d][s], lv * alpha_f)
@@ -78,18 +84,23 @@ def make_sharded_annealed_topk(mesh: Mesh, chunks: list[list[EdgeChunk]],
                     partials.append(ch.push(rem))
                 pushed = psum(partials)
                 for s, ch in enumerate(row):
+                    if is_remote(ch):
+                        continue
                     r_new = torch.addcmul(pushed[s], dangs[s], src[d][s])
                     r[d][s] = torch.where(live[ch.src.device], r_new,
                                           r[d][s])
 
         def stats(thresh):
             # the graph replicas of a row agree bit for bit (each holds the
-            # same psum), so shard 0 speaks for the row
+            # same psum), so a rank's first shard of the row speaks for it
             rsum, done = [], []
             for d, row in enumerate(chunks):
-                t = thresh[row[0].src.device]
-                rsum.append(r[d][0].sum(dim=0).max())
-                done.append(((p[d][0] >= t).sum(dim=0) >= k).all())
+                s = mesh.speaker(d)
+                if s is None:
+                    continue
+                t = thresh[row[s].src.device]
+                rsum.append(r[d][s].sum(dim=0).max())
+                done.append(((p[d][s] >= t).sum(dim=0) >= k).all())
             return rsum, done
 
         iters = run_annealed(mesh, sweep, stats, eps=eps, delta0=delta0,
@@ -99,6 +110,11 @@ def make_sharded_annealed_topk(mesh: Mesh, chunks: list[list[EdgeChunk]],
         b_l = len(sources) // mesh.data
         for d, row in enumerate(chunks):
             ch = row[0]
+            if is_remote(ch):
+                vals.append(ch)
+                ids.append(ch)
+                finals.append(ch)
+                continue
             srcs = torch.as_tensor(sources[d * b_l:(d + 1) * b_l],
                                    dtype=torch.int64, device=ch.src.device)
             deg_src = ch.out_deg.index_select(0, srcs)[None, :]
@@ -123,6 +139,11 @@ def prepare_state(mesh: Mesh, chunks, sources: np.ndarray, n_pad: int):
         srcs = sources[d * b_l:(d + 1) * b_l]
         prow, rrow, srow = [], [], []
         for ch in row:
+            if is_remote(ch):
+                prow.append(ch)
+                rrow.append(ch)
+                srow.append(ch)
+                continue
             dev = ch.src.device
             oh = onehot_t(srcs, n_pad, dev)
             deg = ch.out_deg.index_select(
@@ -193,6 +214,7 @@ class ShardedForaTopk:
         sources_p, b = self._pad_batch(sources)
         kcap = topk_kcap(k, g.n_pad, kcap)
         vals, ids, _, _ = self._run(sources_p, k, kcap, eps)
+        vals, ids = mesh_mod.fetch(self.mesh, [vals, ids])
         return (torch.cat([v.cpu() for v in vals]).numpy()[:b],
                 torch.cat([i.cpu() for i in ids]).numpy()[:b])
 
@@ -207,4 +229,5 @@ class ShardedForaTopk:
         sources_p, b = self._pad_batch(sources)
         _, _, finals, _ = self._run(sources_p, k,
                                     topk_kcap(k, g.n_pad), eps)
+        finals = mesh_mod.fetch(self.mesh, finals)
         return torch.cat([x.cpu() for x in finals], dim=1).T.numpy()[:b]

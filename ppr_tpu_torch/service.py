@@ -23,7 +23,10 @@ engine: ``mesh_engine="edge"`` (:class:`~.parallel.sharded_fora.
 ShardedForaTopk`, the edges split over ``graph``, node state replicated)
 or ``"node"`` (:class:`~.parallel.node_sharded_fora.NodeShardedForaTopk`,
 O(n/S) state a shard, with ``frontier_blocks=C`` its frontier-compacted
-ring); :meth:`PPRService.whole_graph` stays on the dataset's device.
+ring); :meth:`PPRService.whole_graph` stays on the dataset's device. A
+mesh across processes (``parallel/distributed.py::global_mesh``) is
+taken too: every rank builds the service with the same arguments, makes
+the same calls, and gets the same hits.
 """
 
 from __future__ import annotations

@@ -37,11 +37,17 @@ def progress_printer(total: int, *, enabled: bool = True):
 
 
 class PerfResultWriter:
-    def __init__(self, dataset_name: str, out_dir: str = "."):
+    def __init__(self, dataset_name: str, out_dir: str = ".", *,
+                 enabled: bool = True):
+        """``enabled=False`` writes nothing: the ranks of a mesh across
+        processes other than rank 0."""
         os.makedirs(out_dir, exist_ok=True)
         self.path = os.path.join(out_dir, f"{dataset_name}_AlgoPerfResults.txt")
+        self.enabled = enabled
 
     def _append(self, text: str) -> None:
+        if not self.enabled:
+            return
         with open(self.path, "a") as f:
             f.write(text)
 

@@ -9,7 +9,12 @@ Monte_Carlo.java:209-231 and its siblings, read back at
 Monte_Carlo.java:235-254, sized via FileUtils.sizeOfDirectory at
 Monte_Carlo.java:322-325). Results land as one ``.npz`` shard per source
 batch (sparse id/value pairs) plus a ``manifest.json``; an interrupted
-all-pair sweep resumes from the last completed shard."""
+all-pair sweep resumes from the last completed shard.
+
+On a mesh across processes (``mesh=``, whose ranks all compute the same
+rows) rank 0 alone writes, removes and finalizes the store, and every rank
+waits for it at ``reset``, ``finalize`` and ``delete``, so the files are
+those a single process writes. The ranks share the store's directory."""
 
 from __future__ import annotations
 
@@ -31,9 +36,11 @@ class PPRStore:
     _SHARD_CACHE_CAP = 4
     _SHARD_CACHE_BYTES = 512 << 20
 
-    def __init__(self, root: str, n: int):
+    def __init__(self, root: str, n: int, *, mesh=None):
         self.root = root
         self.n = n
+        #: a ``parallel.mesh.Mesh``: only its writer rank touches the files
+        self.mesh = mesh
         self._row_index: dict[int, str] | None = None
         self._ranges: list | None = None
         self._range_starts: list = []
@@ -44,10 +51,11 @@ class PPRStore:
         """Clear any previous finalized store (reference clears the directory
         before preprocessing, e.g. Monte_Carlo.java:203-213) but keep
         unfinalized shards so an interrupted sweep resumes."""
-        manifest = self._read_manifest()
-        if manifest.get("finalized"):
-            shutil.rmtree(self.root, ignore_errors=True)
-        os.makedirs(self.root, exist_ok=True)
+        if self._writer:
+            if self._read_manifest().get("finalized"):
+                shutil.rmtree(self.root, ignore_errors=True)
+            os.makedirs(self.root, exist_ok=True)
+        self._barrier()
         self._row_index = None
         self._ranges = None
         self._shard_cache.clear()
@@ -74,6 +82,8 @@ class PPRStore:
 
         Used by the preprocessing sweep (``models/base.py``), which writes
         each source's kept entries in column order."""
+        if not self._writer:
+            return
         ptr = [0]
         for ids in ids_list:
             ptr.append(ptr[-1] + len(ids))
@@ -124,6 +134,13 @@ class PPRStore:
         return cached
 
     def finalize(self, **extra) -> None:
+        if self._writer:
+            self._write_manifest(extra)
+        self._barrier()
+        self._row_index = None
+        self._ranges = None
+
+    def _write_manifest(self, extra: dict) -> None:
         shards = sorted(
             f for f in os.listdir(self.root) if f.startswith("batch_")
         )
@@ -142,8 +159,6 @@ class PPRStore:
                     "ranges": ranges, **extra}
         with open(os.path.join(self.root, _MANIFEST), "w") as f:
             json.dump(manifest, f)
-        self._row_index = None
-        self._ranges = None
 
     # --- read path --------------------------------------------------------
     def read_row(self, source: int) -> np.ndarray:
@@ -197,8 +212,18 @@ class PPRStore:
         return total
 
     def delete(self) -> None:
-        shutil.rmtree(self.root, ignore_errors=True)
+        self._barrier()      # every rank has read what it needed
+        if self._writer:
+            shutil.rmtree(self.root, ignore_errors=True)
         self._shard_cache.clear()
+
+    @property
+    def _writer(self) -> bool:
+        return self.mesh is None or self.mesh.is_writer
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def _shard_path(self, start: int) -> str:
         return os.path.join(self.root, f"batch_{start:09d}.npz")

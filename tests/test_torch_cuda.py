@@ -1204,3 +1204,86 @@ def test_fora_auto_hubs_on_the_card_matches_cpu(cuda):
                              vals[i], ids[i], 10, tol=1e-6).tolist())
                           for i in range(len(vals))])
     assert out["cpu"] == out[str(cuda)]
+
+
+# -- a mesh across processes on the one card --------------------------------
+
+def spanning_rank(work: str, backend: str) -> None:
+    """A rank of the card tests' spawns: ``backend`` ranks sharing the card
+    run the edge engine on ``global_mesh(2)`` and save what they got."""
+    import os
+
+    import torch.distributed as dist
+
+    from ppr_tpu_torch.parallel.distributed import (global_mesh,
+                                                    initialize_from_env)
+    from ppr_tpu_torch.parallel.sharded_fora import ShardedForaTopk
+
+    assert initialize_from_env(backend, timeout_s=60)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if backend == "nccl":
+        x = torch.ones(4, device=dev)
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+    mesh = global_mesh(2, devices=[dev])
+    ds = synthetic_powerlaw(2048, 8, seed=5, dense_threshold=0, device=dev)
+    eng = ShardedForaTopk(ds, ALPHA, 10, mesh=mesh)
+    sources = np.arange(8, dtype=np.int32) * 37
+    out = {"dense": eng.compute_topk_batch(sources, 10, 0.5),
+           "iters": eng.last_iters,
+           "ids": eng.compute_topk_ids_batch(sources, 10, 0.5)[1],
+           "launches": row_gather.segment_sum_launches,
+           "probes": probe.launches}
+    torch.save(out, os.path.join(work, f"rank{dist.get_rank()}.pt"))
+    dist.destroy_process_group()
+
+
+def spawn_on_the_card(tmp_path, backend: str, nprocs: int = 2):
+    import os
+    import sys
+
+    from ppr_tpu_torch.parallel.distributed import spawn_local
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path[:0] = [{here!r}, "
+            f"{os.path.dirname(here)!r}]; import test_torch_cuda as t; "
+            f"t.spanning_rank({str(tmp_path)!r}, {backend!r})")
+    spawn_local(nprocs, [sys.executable, "-c", code], timeout_s=180,
+                log_dir=str(tmp_path / "logs"))
+    return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+            for r in range(nprocs)]
+
+
+def test_spanning_edge_mesh_on_the_card_is_one_process(cuda, tmp_path):
+    """Two gloo ranks sharing the card, each a position of an edge 1x2
+    mesh: the single-process ``["cuda:0"] * 2`` mesh's sweeps and bits on
+    both ranks; each rank launched K0 once and K3 on its own chunk."""
+    from ppr_tpu_torch.parallel.mesh import make_mesh
+    from ppr_tpu_torch.parallel.sharded_fora import ShardedForaTopk
+
+    ranks = spawn_on_the_card(tmp_path, "gloo")
+    ds = synthetic_powerlaw(2048, 8, seed=5, dense_threshold=0,
+                            device=cuda)
+    mesh = make_mesh(2, data=1, graph=2, devices=[cuda] * 2)
+    eng = ShardedForaTopk(ds, ALPHA, 10, mesh=mesh)
+    sources = np.arange(8, dtype=np.int32) * 37
+    want = eng.compute_topk_batch(sources, 10, 0.5)
+    for got in ranks:
+        assert got["iters"] == eng.last_iters > 0
+        assert got["dense"].tobytes() == want.tobytes()
+        assert got["probes"] == 1 and got["launches"] > 0
+
+
+def test_nccl_refuses_two_ranks_on_one_card(cuda, tmp_path):
+    """NCCL takes one rank a card: two NCCL ranks on the one card fail
+    (their words are printed), which is why ranks sharing a card use
+    gloo."""
+    if torch.cuda.device_count() != 1:
+        pytest.skip("needs exactly one card")
+    with pytest.raises(RuntimeError) as err:
+        spawn_on_the_card(tmp_path, "nccl")
+    words = [line for line in str(err.value).splitlines()
+             if "NCCL" in line or "ncclInvalidUsage" in line
+             or "Duplicate GPU" in line]
+    print("NCCL's words:", *words[:6], sep="\n  ")
+    assert words

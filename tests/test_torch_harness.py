@@ -282,13 +282,15 @@ def test_unported_algorithm_raises_at_its_section(small, tmp_path,
 def test_harness_unported_options_raise(datasets):
     _, tds = datasets["dense"]
     # a mesh is taken: every algorithm comes from mesh_algo_obj
-    # (tests/test_torch_mesh_algos.py runs them); only a mesh across hosts
-    # is not ported
+    # (tests/test_torch_mesh_algos.py runs them), and a mesh across
+    # processes too (tests/test_torch_distributed.py): its entry points no
+    # longer raise, and in one process they are make_mesh's
     mesh = make_mesh(4, data=2, graph=2, devices=["cpu"] * 4)
     assert th.PerfHarness(tds, mesh=mesh).mesh is mesh
-    for entry in (distributed.initialize_from_env, distributed.global_mesh):
-        with pytest.raises(NotImplementedError, match="item 18, multi-host"):
-            entry()
+    assert distributed.initialize_from_env() is False
+    spanning = distributed.global_mesh(devices=["cpu"] * 4)
+    assert spanning.devices == mesh.devices and not spanning.spans
+    assert th.PerfHarness(tds, mesh=spanning).writer.enabled
     # the walk completion is ported: every mode is taken, as in JAX
     for mode in ("auto", "spmv", "walks"):
         assert th.PerfHarness(tds, fora_completion=mode).fora_completion \

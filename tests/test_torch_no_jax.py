@@ -71,6 +71,7 @@ MODULES = [
     "scale_1m_knee_torch",
     "ring_occupancy_torch",
     "gen_scaling_model_torch",
+    "dist_protocol_ab",
 ]
 
 _PROBE = """
