@@ -95,6 +95,15 @@ script exits non-zero:
    BASE rows to the JAX package's values for the same command on the CPU
    (``JAX_ROWS``). A Neo4j store is read back against a direct K2 launch,
    and a Forward Push store against a direct push;
+10b. the protocol at the named datasets' scale
+   (``dataset_protocol_path``): ``[protocol:blogcatalog]`` (10,240 nodes;
+   Forward Push, the Neo4j method and BASE, Tests 1-2) and
+   ``[protocol:amazon]`` (262,144 nodes; Forward Push and the Neo4j
+   method, Test 2), each the command of a block of
+   ``results/protocol_grid_jax_cpu.json`` and every row held to that
+   block's, the JAX package's on the CPU; every K3 launch made in a call
+   ``HeldK3(protocol=True)`` holds, one a sweep of each push, reverse
+   push, Neo4j and oracle loop;
 11. the walk path: ``[mc:bench]`` (Monte-Carlo on the bench graph, 4
    sources at eps 0.5, 9.27M walks a source, mean max-err < 0.05 against
    the power method), ``[fora:walks]`` (``ForaTopk(push="reference")``
@@ -227,9 +236,10 @@ script exits non-zero:
 
 Launch counts are reset before the serving path (7) and read after it,
 and again before and after the serving layer (9), the protocol path (10),
-the walk path (11), the weighted path and the store path (12) and the
-mesh path (13: reset after the single-device references, read before
-``[mesh:dryrun]``, and equal to the sum of the mesh engines' own counts)
+the dataset protocol path (10b), the walk path (11), the weighted path
+and the store path (12) and the mesh path (13: reset after the
+single-device references, read before ``[mesh:dryrun]``, and equal to
+the sum of the mesh engines' own counts)
 and the mesh protocol path (14: after its single-device references,
 before ``[mesh:scaling]``), the mesh across processes (14b: in each rank,
 before its engines and after them, summed over the ranks) and the scale
@@ -239,8 +249,9 @@ a reset also forgets the probe, so each path runs K0 once before its
 first hand kernel. The
 weighted path must launch K3 only in its coefficient mode, and never its
 plain version; the mesh path must launch K3 in both modes. The last three
-lines are the kernels' JSON record (``launches`` summed over the ten
-paths, K3's ``mesh``, ``mesh_protocol``, ``dist`` and ``scale`` entries
+lines are the kernels' JSON record (``launches`` summed over the eleven
+paths, K3's ``mesh``, ``mesh_protocol``, ``dist``, ``dataset_protocol``
+and ``scale`` entries
 with those paths' own;
 ``row_gather`` is a
 microbenchmark, as P1-P4 were on the TPU, so no path launches it; ``ms``,
@@ -265,6 +276,8 @@ import numpy as np
 
 from ppr_tpu_torch.utils.cuda_timing import (card_line, cuda_ms, graph_ms,
                                              host_us, l2_flusher)
+from ppr_tpu_torch.utils.report import (read_protocol_file,
+                                        read_protocol_rows, row_failures)
 
 ALPHA, EPS, K = 0.15, 0.5, 10
 ITERS = 100
@@ -522,12 +535,12 @@ WEIGHTED_GRQC = (5120, 3, 103)
 #   "wgrqc.txt"); write_weighted_edges(p); PerfHarness(load_edge_list(p,
 #   weighted=True), seed=0, out_dir=d).algo_perf_batch_test(50, 10,
 #   sweep="grqc", tests=(1, 2), algos={"FWDPUSH", "NEO4J_METHOD",
-#   "FORA_TOPK"}); print(protocol_rows(os.path.join(d,
+#   "FORA_TOPK"}); print(read_protocol_file(os.path.join(d,
 #   "wgrqc_AlgoPerfResults.txt")))'
 # max-err for Test 1, precision for Test 2, by sweep value. Forward Push
-# and the Neo4j method are held to [protocol:grqc]'s bars (check_protocol_
-# rows), FORA top-k to [protocol:walks]'s (check_walk_rows): its cost
-# model may take walks, whose draws differ between the packages.
+# and the Neo4j method are held to [protocol:grqc]'s bars, FORA top-k to
+# [protocol:walks]'s (check_protocol_rows picks the bar by algorithm): its
+# cost model may take walks, whose draws differ between the packages.
 WEIGHTED_JAX_ROWS = {
     (1, "FWDPUSH"): {
         "0.0001": 0.0032060828804969786, "1e-05": 0.0006496196985244751,
@@ -1611,21 +1624,6 @@ def read_launches() -> dict[str, int]:
             "gather": row_gather.gather_launches}
 
 
-def protocol_rows(path: str) -> dict[tuple[int, str], list[list[str]]]:
-    """Data rows of a ``<name>_AlgoPerfResults.txt``, by (test, algorithm)
-    section."""
-    rows: dict[tuple[int, str], list[list[str]]] = {}
-    key = None
-    with open(path) as f:
-        for line in f.read().splitlines():
-            m = re.fullmatch(r"(\d)\.\d+ (\w+)", line)
-            if m:
-                key = (int(m[1]), m[2])
-            elif key and "," in line and not line.startswith("#"):
-                rows.setdefault(key, []).append(line.split(","))
-    return rows
-
-
 def run_protocol(tag: str, argv: list[str]):
     """``ppr_tpu_torch.cli.main(argv)`` in-process from a fresh
     ``build/ppr_tpu_torch/protocol/<tag>/``, its output in ``cli.log``
@@ -1650,67 +1648,29 @@ def run_protocol(tag: str, argv: list[str]):
         os.chdir(cwd)
     wall = time.perf_counter() - t0
     [name] = [f for f in os.listdir(work) if f.endswith("_AlgoPerfResults.txt")]
-    return protocol_rows(os.path.join(work, name)), wall, work
+    return read_protocol_file(os.path.join(work, name)), wall, work
 
 
-def check_protocol_rows(tag: str, rows, *, top_iters=40, err_iters=100,
-                        err=PROTOCOL_ERR, jax_rows=None) -> None:
-    """Print every row and hold it to its bar: the Neo4j rows to max-err
-    <= err from ``err_iters`` iterations, precision 1.0 and NDCG >= 0.999
-    from ``top_iters``; the Forward Push and BASE rows to ``jax_rows``,
-    every one of which must be present; preprocessing bytes > 0; every
-    number finite.
-
-    Row formats (Gen_Util.java): Test 1 ``param, ms, err``; Test 2 ``param,
-    k, ms, precision, NDCG``; Test 3 ``param, threshold, prep_ms, bytes,
-    err``. BASE's rows carry ``-1, threshold`` (Tests 1 and 3) or
-    ``threshold, k`` (Test 2), then ``prep_ms, bytes``, then its query ms
-    (Tests 1 and 2) and the accuracy fields. So ``prep_ms, bytes`` are the
-    third and fourth fields wherever they appear."""
+def check_protocol_rows(tag: str, rows, jax_rows=None) -> None:
+    """Print every row (``ProtocolRow`` s) and hold it to
+    ``report.row_failures``, the bars ``protocol_grid_torch.py`` holds its
+    rows to: every number finite, every store non-empty, the Neo4j
+    method's own bars (max-err <= 1e-6 from 100 iterations, precision 1.0
+    and NDCG >= 0.999 from 40), and the bar of PERF.md section 2 against
+    the row of ``jax_rows`` (``{(test, algo): {param: accuracy}}``) of the
+    same test, algorithm and param, every one of which must be present:
+    the walk paths by distribution, the rest to the JAX row's digits."""
     check(bool(rows), f"[protocol:{tag}] no result rows")
     seen = set()
-    for (test, algo), section in sorted(rows.items()):
-        base = algo == "BASE_WHOLE_GRAPH"
-        for fields in section:
-            check(all(np.isfinite(float(x)) for x in fields),
-                  f"[protocol:{tag}] {test} {algo} {fields}: not finite")
-            value = fields[1] if base and test != 2 else fields[0]
-            prep = ""
-            if base or test == 3:
-                ms, nbytes = float(fields[2]), int(fields[3])
-                check(nbytes > 0, f"[protocol:{tag}] empty store: {fields}")
-                prep = f"prep_ms {ms:.1f}, store {nbytes} bytes, "
-            if test == 2:
-                q_ms, prec, ndcg = (float(x) for x in fields[-3:])
-                line = (f"{q_ms:.3f} ms/query, precision {prec:.4f}, "
-                        f"NDCG {ndcg:.6f}")
-                got = prec
-            else:
-                e = float(fields[-1])
-                line = f"max-err {e:.3e}"
-                if test == 1:
-                    line = f"{float(fields[-2]):.3f} ms/query, {line}"
-                got = e
-            print(f"[protocol:{tag}] test {test} {algo} param {value}: "
-                  f"{prep}{line}")
-            if algo == "NEO4J_METHOD":
-                param = float(value)
-                if test in (1, 3) and param >= err_iters:
-                    check(e <= err, f"[protocol:{tag}] test {test} iters "
-                          f"{value}: max-err {e} > {err}")
-                if test == 2 and param >= top_iters:
-                    check(prec == 1.0 and ndcg >= 0.999,
-                          f"[protocol:{tag}] test 2 iters {value}: "
-                          f"precision {prec}, NDCG {ndcg}")
-            want = (jax_rows or {}).get((test, algo), {}).get(value)
-            if want is None:
-                continue
-            seen.add((test, algo, value))
-            bar = (0.002 if test == 2 else
-                   1e-3 if base else 0.01 * want + 1e-7)
-            check(abs(got - want) <= bar,
-                  f"[protocol:{tag}] test {test} {algo} {value}: {got} vs "
-                  f"JAX's {want} (bar {bar:.3g})")
+    for r in rows:
+        want = (jax_rows or {}).get((r.test, r.algo), {}).get(r.param)
+        if want is not None:
+            seen.add((r.test, r.algo, r.param))
+        print(f"[protocol:{tag}] {r.summary()}"
+              + ("" if want is None else f"; JAX {want:.6g}"))
+        failures = row_failures(r, want)
+        check(not failures, f"[protocol:{tag}] test {r.test} {r.algo} "
+              f"{r.param}: " + "; ".join(failures))
     missing = {(t, a, v) for (t, a), vals in (jax_rows or {}).items()
                for v in vals} - seen
     check(not missing, f"[protocol:{tag}] rows missing: {sorted(missing)}")
@@ -1764,7 +1724,8 @@ def protocol_path(dev, k2_b128_ms: float) -> dict[str, int]:
     check(counts["k1"] > 0, "the protocol's oracle did not launch K1")
     check(counts["k0"] == 1, f"K0 ran {counts['k0']} times, not once")
     check_protocol_rows("got", rows)
-    check(len(rows[(2, "FORA_TOPK")]) == 5, "FORA_TOPK rows missing")
+    check(sum((r.test, r.algo) == (2, "FORA_TOPK") for r in rows) == 5,
+          "FORA_TOPK rows missing")
 
     # Forward Push and BASE as their own run: the same command as the JAX
     # rows they are held to (the query draws follow the algorithm set)
@@ -1783,7 +1744,8 @@ def protocol_path(dev, k2_b128_ms: float) -> dict[str, int]:
           f"Tests 1 and 3: wall {wall:.1f} s; K2 launches so far "
           f"{dense_power.pagerank_launches}")
     check_protocol_rows("k2max", rows)
-    prep = {r[0]: float(r[2]) for r in rows[(3, "NEO4J_METHOD")]}
+    prep = {r.param: r.prep[0] for r in rows
+            if (r.test, r.algo) == (3, "NEO4J_METHOD")}
     print(f"[protocol:k2max] prep ms a param, by iterations: {prep}; K2's "
           f"share at {K2_ITERS}: 8 batches x [k2:b128] {k2_b128_ms:.3f} ms "
           f"= {8 * k2_b128_ms:.1f} ms of {prep.get(str(K2_ITERS), 0.0):.1f}")
@@ -1836,6 +1798,62 @@ def protocol_path(dev, k2_b128_ms: float) -> dict[str, int]:
           f"{err:.3e}, store {nbytes} bytes")
     check(err <= PROTOCOL_ERR, f"store rows differ from K2 by {err}")
     return counts
+
+
+#: ``protocol_grid_reference.py``'s blocks that ``[protocol:blogcatalog]``
+#: and ``[protocol:amazon]`` run again and are held to: the JAX package's
+#: rows of the same commands on the CPU
+DATASET_BLOCKS = {"blogcatalog": "blogcatalog_t12", "amazon": "amazon_t2"}
+JAX_CPU_ROWS = os.path.join("results", "protocol_grid_jax_cpu.json")
+
+
+def dataset_protocol_path(dev) -> tuple[dict[str, int], dict]:
+    """``[protocol:blogcatalog]`` and ``[protocol:amazon]``: the CLI at the
+    named datasets' stand-ins (10,240 and 262,144 nodes) with the commands
+    of their ``jax-cpu`` blocks in ``results/protocol_grid_jax_cpu.json``
+    (Forward Push, the Neo4j method and BASE, Tests 1-2, on blogcatalog;
+    Forward Push and the Neo4j method, Test 2, on amazon), every row held
+    to the block's by ``check_protocol_rows``'s bars. Every K3 launch of
+    the window is made in a call ``HeldK3(protocol=True)`` holds: each
+    push, reverse push and Neo4j loop and the oracle, one launch a sweep.
+    Returns the path's launch counts and each run's wall."""
+    import shlex
+
+    import torch
+
+    with open(JAX_CPU_ROWS) as f:
+        blocks = json.load(f)["blocks"]
+    walls = {}
+    reset_launches()
+    with HeldK3(protocol=True) as held:
+        for tag, name in DATASET_BLOCKS.items():
+            block = blocks[name]
+            argv = shlex.split(block["command"])
+            args = argv[argv.index("ppr_tpu.cli") + 1:]
+            jax_rows: dict = {}
+            for r in read_protocol_rows(block["report"]):
+                jax_rows.setdefault((r.test, r.algo), {})[r.param] = \
+                    r.accuracy
+            mark = held.mark()
+            torch.cuda.reset_peak_memory_stats()
+            rows, wall, _ = run_protocol(tag, args)
+            walls[tag] = round(wall, 3)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            print(f"[protocol:{tag}] {' '.join(args)}: wall {wall:.1f} s, "
+                  f"peak {peak:.2f} GB; JAX CPU's block {name} "
+                  f"({block['seconds']} s on {block['cpu']})")
+            check_protocol_rows(tag, rows, jax_rows=jax_rows)
+            held.hold(f"protocol:{tag}", mark)
+    counts = read_launches()
+    print(f"[protocol:datasets] K3 launches {counts['k3']}, all in held "
+          f"calls: {counts['k3'] == held.got}; K0 {counts['k0']}")
+    check(counts["k3"] == held.got and not held.bad,
+          f"[protocol:datasets] {counts['k3']} K3 launches, {held.got} in "
+          f"held calls; {held.bad[:4]}")
+    check(counts["k0"] == 1, f"K0 ran {counts['k0']} times, not once")
+    check(counts["k1"] == counts["k2"] == 0,
+          "the sparse stand-ins launched K1 or K2")
+    return counts, {"walls_s": walls, "held_calls": held.calls}
 
 
 def walk_phase(dev, g) -> dict:
@@ -1930,40 +1948,6 @@ def calibrate_phase(dev, ds) -> dict:
     return {"runs": runs, "median": med, "annealed": out}
 
 
-def check_walk_rows(tag, rows, jax_rows) -> None:
-    """Hold each row to the JAX package's CPU row of the same command and
-    seed: max-err (Tests 1 and 3) <= 1.5 x JAX's + 1e-4, precision (Test
-    2) >= JAX's - 0.05; every JAX row present, every number finite, every
-    store non-empty."""
-    seen = set()
-    for (test, algo), section in sorted(rows.items()):
-        for fields in section:
-            check(all(np.isfinite(float(x)) for x in fields),
-                  f"[protocol:{tag}] {test} {algo} {fields}: not finite")
-            if test == 3:
-                check(int(fields[3]) > 0,
-                      f"[protocol:{tag}] empty store: {fields}")
-            got = float(fields[-2] if test == 2 else fields[-1])
-            want = jax_rows.get((test, algo), {}).get(fields[0])
-            what = "precision" if test == 2 else "max-err"
-            if want is None:
-                print(f"[protocol:{tag}] test {test} {algo} param "
-                      f"{fields[0]}: {what} {got:.6g} (no JAX row)")
-                continue
-            seen.add((test, algo, fields[0]))
-            ok = got >= want - 0.05 if test == 2 else \
-                got <= 1.5 * want + 1e-4
-            ms = {1: f"{fields[1]} ms/query", 2: f"{fields[2]} ms/query",
-                  3: f"prep {fields[2]} ms"}[test]
-            print(f"[protocol:{tag}] test {test} {algo} param {fields[0]}: "
-                  f"{what} {got:.6g}, JAX {want:.6g}; {ms}")
-            check(ok, f"[protocol:{tag}] test {test} {algo} {fields[0]}: "
-                  f"{what} {got} against JAX's {want}")
-    missing = {(t, a, v) for (t, a), vals in jax_rows.items()
-               for v in vals} - seen
-    check(not missing, f"[protocol:{tag}] rows missing: {sorted(missing)}")
-
-
 def walk_path(dev, ds, hs) -> dict[str, int]:
     """Monte-Carlo, FORA's push+walk rounds and FORA whole-graph on the
     bench graph, then the protocol CLI with the walk completions; returns
@@ -2054,8 +2038,8 @@ def walk_path(dev, ds, hs) -> dict[str, int]:
         print(f"[protocol:walks] synth:107x3@7 --seed {seed} --fora-"
               f"completion walks, MC, FORA_WHOLE_GRAPH, FORA_TOPK, Tests "
               f"1-3: wall {wall:.1f} s")
-        check_walk_rows(f"walks:got:{seed}", rows,
-                        WALK_JAX_ROWS[("got", seed)])
+        check_protocol_rows(f"walks:got:{seed}", rows,
+                            WALK_JAX_ROWS[("got", seed)])
     for completion in ("auto", "walks"):
         rows, wall, _ = run_protocol(f"walks_grqc_{completion}", [
             "--db", "synth:grqc", "--query", "50", "--k", str(K),
@@ -2063,8 +2047,8 @@ def walk_path(dev, ds, hs) -> dict[str, int]:
             "--fora-completion", completion])
         print(f"[protocol:walks] synth:grqc --fora-completion {completion}, "
               f"FORA_WHOLE_GRAPH, FORA_TOPK, Tests 1-2: wall {wall:.1f} s")
-        check_walk_rows(f"walks:grqc:{completion}", rows,
-                        WALK_JAX_ROWS[("grqc", completion)])
+        check_protocol_rows(f"walks:grqc:{completion}", rows,
+                            WALK_JAX_ROWS[("grqc", completion)])
     counts = read_launches()
     print(f"[protocol:walks] walk path launches: K3 {counts['k3']}, K1 "
           f"{counts['k1']}, K0 {counts['k0']}")
@@ -2365,20 +2349,14 @@ def weighted_path(dev, wds, unweighted_walk_rate: float) -> dict[str, int]:
         finally:
             os.chdir(cwd)
         wall = time.perf_counter() - t0
-        rows = protocol_rows(os.path.join(work, "wgrqc_AlgoPerfResults.txt"))
+        rows = read_protocol_file(
+            os.path.join(work, "wgrqc_AlgoPerfResults.txt"))
         print(f"[protocol:weighted] {ds_p.name}: {ds_p.graph.n} nodes, "
               f"{ds_p.graph.m} weighted edges (load_edge_list(weighted="
               f"True)), PerfHarness Tests 1-2, FWDPUSH, NEO4J_METHOD, "
               f"FORA_TOPK, 50 queries: wall {wall:.1f} s; K3 coefficient-"
               f"mode launches {read_launches()['k3_coef'] - k3_before}")
-        check_protocol_rows("weighted", {
-            key: v for key, v in rows.items() if key[1] != "FORA_TOPK"},
-            jax_rows={key: v for key, v in WEIGHTED_JAX_ROWS.items()
-                      if key[1] != "FORA_TOPK"})
-        check_walk_rows("weighted", {
-            key: v for key, v in rows.items() if key[1] == "FORA_TOPK"},
-            {key: v for key, v in WEIGHTED_JAX_ROWS.items()
-             if key[1] == "FORA_TOPK"})
+        check_protocol_rows("weighted", rows, jax_rows=WEIGHTED_JAX_ROWS)
     counts = read_launches()
     print(f"[weighted] weighted path launches: K3 coefficient mode "
           f"{counts['k3_coef']} of K3's {counts['k3']}, K1 {counts['k1']}, "
@@ -2439,22 +2417,17 @@ def neostore_path(dev) -> dict[str, int]:
           f"--rel NOPE raised: {raised!r}")
     check(raised is not None and "NOPE" in raised,
           "[neostore] --rel NOPE did not raise")
-    check(set(store_rows) == set(synth_rows),
-          f"[neostore] sections {sorted(store_rows)} vs {sorted(synth_rows)}")
-    for key in sorted(store_rows):
-        got, want = store_rows[key], synth_rows[key]
-        if key[0] == 1:
-            # param and max-err; the time column may differ
-            same = [(r[0], r[-1]) for r in got] == \
-                [(r[0], r[-1]) for r in want]
-            print(f"[neostore] test 1 {key[1]}: "
-                  + "; ".join(f"param {r[0]} max-err {r[-1]}" for r in got)
-                  + f"; equal to synth:107x3@7's: {same}")
-            check(same, f"[neostore] test 1 {key[1]}: {got} vs {want}")
-        else:
-            print(f"[neostore] test {key[0]} {key[1]}: " + "; ".join(
-                f"param {r[0]} precision {r[-2]}" for r in got)
-                + " (synth:107x3@7: " + ", ".join(r[-2] for r in want) + ")")
+    def names(rows):
+        return [(r.test, r.algo, r.param) for r in rows]
+
+    check(names(store_rows) == names(synth_rows),
+          f"[neostore] rows {names(store_rows)} vs {names(synth_rows)}")
+    for got, want in zip(store_rows, synth_rows):
+        # Test 1's max-err must be equal; the time columns may differ
+        print(f"[neostore] {got.summary()} (synth:107x3@7: "
+              f"{want.accuracy:.6g})")
+        check(got.test != 1 or got.accuracy == want.accuracy,
+              f"[neostore] {got.fields} vs {want.fields}")
     check_protocol_rows("neostore", store_rows)
     counts = read_launches()
     print(f"[neostore] store path launches: K2 {counts['k2']}, K1 "
@@ -2901,6 +2874,11 @@ class HeldK3:
     ring block of every data row); and ``ring_occupancy_torch``'s
     coverage loop (one launch a sweep).
 
+    ``protocol=True`` also holds the single-device loops of the protocol
+    CLI's Forward Push (``loop_sweeps``), BASE's reverse push
+    (``loop_sweeps``) and the Neo4j method (its iterations), each one
+    launch a sweep on a sparse graph.
+
     ``spanning=True`` (a rank of ``[dist:*]``) also holds the serving
     engines on a mesh across processes: ``ShardedForaTopk._run`` and
     ``NodeShardedForaTopk._run`` (their sweeps rounded up to a host read)
@@ -2908,13 +2886,15 @@ class HeldK3:
     sweeps), each times one launch a non-empty chunk or ring block of this
     rank's positions; the walks launch none. Every count is this rank's."""
 
-    def __init__(self, single: bool = False, spanning: bool = False):
+    def __init__(self, single: bool = False, spanning: bool = False,
+                 protocol: bool = False):
         self.calls = self.got = self.want = 0
         self.bad: list[str] = []
         self._undo = []
         self._depth = 0
         self.single = single
         self.spanning = spanning
+        self.protocol = protocol
 
     def __enter__(self):
         from ppr_tpu_torch.models import power_method
@@ -2958,7 +2938,29 @@ class HeldK3:
             self._patch_single()
         if self.spanning:
             self._patch_spanning()
+        if self.protocol:
+            self._patch_protocol()
         return self
+
+    def _patch_protocol(self):
+        from ppr_tpu_torch.models import (backward_search, forward_push,
+                                          neo4j_method)
+
+        def per_sweep(g):
+            return 0 if g.has_dense else 1
+
+        for owner, name, want in (
+                (forward_push, "forward_push_sweeps", lambda a, kw, res:
+                 min(loop_sweeps(res[2]), kw.get("max_sweeps", 10_000))
+                 * per_sweep(a[0])),
+                (backward_search, "backward_push_sweeps", lambda a, kw, res:
+                 min(loop_sweeps(res[2]), kw.get("max_sweeps", 10_000))
+                 * per_sweep(a[0])),
+                (neo4j_method, "personalized_pagerank_batch",
+                 lambda a, kw, res: int(a[3] if len(a) > 3
+                                        else kw["iterations"])
+                 * per_sweep(a[0]))):
+            self._patch(owner, name, want)
 
     def _patch_spanning(self):
         from ppr_tpu_torch.models import fora
@@ -3354,7 +3356,8 @@ def mesh_protocol_path(dev, ds, sources, oracle) -> dict:
         wall2 = time.perf_counter() - t0
         print(f"[protocol:mesh] PerfHarness(mesh=2x2 of {dev} repeated), the "
               f"same Tests 1-2: wall {wall2:.1f} s")
-        check_protocol_rows("mesh 2x2", protocol_rows(harness.writer.path),
+        check_protocol_rows("mesh 2x2",
+                            read_protocol_file(harness.writer.path),
                             jax_rows=JAX_ROWS["grqc"])
         # the mesh engines and the power-method oracle of both runs
         proto_k3 = held.hold("protocol:mesh", mark)
@@ -3737,7 +3740,7 @@ def dist_path(dev, ds, sources, oracle) -> tuple[dict, dict]:
     writers = [got["rank"] for got in ranks if got["protocol"]["writer"]]
     check(len(reports) == 1 and writers == [0],
           f"[dist:protocol] reports {reports}, writers {writers}")
-    check_protocol_rows("dist 2x2", protocol_rows(reports.pop()),
+    check_protocol_rows("dist 2x2", read_protocol_file(reports.pop()),
                         jax_rows=JAX_ROWS["grqc"])
     single_root = os.path.join(PROTOCOL_DIR, "mesh_grqc_2x2",
                                "BASE_ppr_results", "grqc")
@@ -4221,6 +4224,8 @@ def main() -> int:
     protocol = protocol_path(dev, next(
         sh["ms"] for sh in k2["shapes"] if sh["case"] == "b128"))
     check(protocol["k3"] > 0, "K3 was not launched on the protocol path")
+    # --- 10b. the protocol at the named datasets' scale ---------------------
+    ds_proto, ds_proto_out = dataset_protocol_path(dev)
 
     # --- 11. the walk path ------------------------------------------------
     walks = walk_path(dev, ds, hs)
@@ -4257,11 +4262,12 @@ def main() -> int:
     store = neostore_path(dev)
     # --- 15. the automatic hub count and the 1M cell ------------------------
     scale, scale_out = scale_path(dev, ds, sweeps)
-    launches = {k: serving[k] + layer[k] + protocol[k] + walks[k]
-                + weighted[k] + mesh[k] + mesh_proto[k] + spanning[k]
-                + store[k] + scale[k] for k in serving}
+    launches = {k: serving[k] + layer[k] + protocol[k] + ds_proto[k]
+                + walks[k] + weighted[k] + mesh[k] + mesh_proto[k]
+                + spanning[k] + store[k] + scale[k] for k in serving}
     print(f"[launches] serving path {serving}, serving layer {layer}, "
-          f"protocol path {protocol}, walk path {walks}, weighted path "
+          f"protocol path {protocol}, dataset protocol path {ds_proto}, "
+          f"walk path {walks}, weighted path "
           f"{weighted}, mesh path {mesh}, mesh protocol path {mesh_proto}, "
           f"mesh across processes (summed over its ranks) {spanning}, "
           f"store path {store}, scale path {scale}")
@@ -4346,6 +4352,7 @@ def main() -> int:
         "mesh_protocol": {"launches": mesh_proto["k3"],
                           **mesh_proto_out},
         "dist": {"launches": spanning["k3"], **spanning_out},
+        "dataset_protocol": {"launches": ds_proto["k3"], **ds_proto_out},
         "scale": {"launches": scale["k3"], **scale_out},
     }, {
         "name": "row_gather",

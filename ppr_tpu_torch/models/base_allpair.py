@@ -29,6 +29,21 @@ from .backward_search import BackwardSearch
 from .base import PPRAlgorithm
 
 
+def group_by_source(v_parts, t_parts, val_parts, n: int):
+    """The sweep's kept ``(source, target, value)`` parts grouped by
+    source: ``(targets, values, row_ptr)``, source ``s``'s entries at
+    ``row_ptr[s]:row_ptr[s + 1]``. The stable sort keeps targets ascending
+    within a source (the reference's insertion order over ascending
+    targets)."""
+    v_all = np.concatenate(v_parts) if v_parts else np.zeros(0, np.int64)
+    t_all = np.concatenate(t_parts) if t_parts else np.zeros(0, np.int64)
+    val_all = (np.concatenate(val_parts) if val_parts
+               else np.zeros(0, np.float32))
+    order = np.argsort(v_all, kind="stable")
+    return (t_all[order], val_all[order],
+            np.searchsorted(v_all[order], np.arange(n + 1)))
+
+
 class BaseAllPair(PPRAlgorithm):
     name = "BASE"
     prep_dirname = "BASE_ppr_results"
@@ -88,16 +103,8 @@ class BaseAllPair(PPRAlgorithm):
             val_parts.append(vals)
             report(min(start + self.target_batch, n) - 1)
 
-        v_all = np.concatenate(v_parts) if v_parts else np.zeros(0, np.int64)
-        t_all = np.concatenate(t_parts) if t_parts else np.zeros(0, np.int64)
-        val_all = (np.concatenate(val_parts) if val_parts
-                   else np.zeros(0, np.float32))
-        # group by source; the stable sort keeps targets ascending within a
-        # source (the reference's insertion order over ascending targets)
-        order = np.argsort(v_all, kind="stable")
-        v_all, t_all, val_all = v_all[order], t_all[order], val_all[order]
-        row_ptr = np.searchsorted(v_all, np.arange(n + 1))
-
+        t_all, val_all, row_ptr = group_by_source(v_parts, t_parts,
+                                                  val_parts, n)
         store = self.make_store(threshold, k)
         store.reset()
         shard = 0
@@ -107,10 +114,7 @@ class BaseAllPair(PPRAlgorithm):
             ids = t_all[lo:hi].astype(np.int32)
             vals = val_all[lo:hi].astype(np.float32)
             if k >= 0 and ids.size:
-                dense = np.zeros(self.graph.n_pad, np.float32)
-                dense[ids] = vals
-                chosen = topk_ids_with_ties(dense, k)
-                ids, vals = chosen.astype(np.int32), dense[chosen]
+                ids, vals = self._topk_row(ids, vals, k)
             sources.append(s)
             ids_list.append(ids)
             vals_list.append(vals)
@@ -121,6 +125,14 @@ class BaseAllPair(PPRAlgorithm):
                 ids_list, vals_list, sources = [], [], []
         store.finalize(threshold=threshold, k=k, alpha=self.alpha)
         self._store, self._threshold, self._k = store, threshold, k
+
+    def _topk_row(self, ids: np.ndarray, vals: np.ndarray, k: int):
+        """One source's kept entries cut to its top-k with ties, in
+        descending order (Base_Whole_Graph.java:133-162)."""
+        dense = np.zeros(self.graph.n_pad, np.float32)
+        dense[ids] = vals
+        chosen = topk_ids_with_ties(dense, k)
+        return chosen.astype(np.int32), dense[chosen]
 
     def attach_store(self, threshold: float, k: int = -1, *,
                      alpha: float | None = None) -> None:

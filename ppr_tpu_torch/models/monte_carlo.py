@@ -33,16 +33,18 @@ def mc_num_walks(eps: float, delta: float, pfail: float) -> int:
 
 def mc_whole_graph_batch(g: Graph, sources: torch.Tensor,
                          generator: torch.Generator, alpha: float,
-                         omega: int) -> torch.Tensor:
+                         omega: int, *, deposit: torch.dtype = torch.float64
+                         ) -> torch.Tensor:
     """f32 ``[B, n_pad]``: ``omega`` walks from each int32 source, each
-    depositing ``1/omega`` in its source's row."""
+    depositing ``1/omega`` in its source's row, added in ``deposit``
+    (:func:`~..ops.walk.weighted_walk_counts`)."""
     b = sources.shape[0]
     rows = torch.arange(b, device=sources.device).repeat_interleave(omega)
     starts = sources.index_select(0, rows)
     weights = torch.full(rows.shape, float(np.float32(1) / np.float32(omega)),
                          dtype=torch.float32, device=sources.device)
     return weighted_walk_counts(g, starts, rows, weights, generator, alpha,
-                                num_rows=b)
+                                num_rows=b, deposit=deposit)
 
 
 class MonteCarlo(PreprocessingMixin, PPRAlgorithm):

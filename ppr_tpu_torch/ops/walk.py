@@ -131,7 +131,9 @@ def weighted_walk_counts(g: Graph, starts: torch.Tensor, rows: torch.Tensor,
                          no_zero_hop: bool = False,
                          max_steps: int | None = None,
                          phase_steps: int = PHASE_STEPS,
-                         compact_factor: int = 4) -> torch.Tensor:
+                         compact_factor: int = 4,
+                         deposit: torch.dtype = torch.float64
+                         ) -> torch.Tensor:
     """f32 ``[num_rows, n_pad]``: walker j deposits ``weights[j]`` at its
     stop node in row ``rows[j]``.
 
@@ -147,19 +149,20 @@ def weighted_walk_counts(g: Graph, starts: torch.Tensor, rows: torch.Tensor,
     that ends with none.
 
     The deposit is one flat ``index_add_`` at ``row * n_pad + node``, into
-    f64 counts returned as f32. The JAX package adds in f32, where each add
-    of a small weight rounds to the bin's ulp, so a row that takes
-    millions of deposits (Monte-Carlo at a small eps) loses a share of its
-    mass. On the card the adds are atomics, so the order of a node's
+    f64 counts returned as f32. The JAX package adds in f32 (``deposit=
+    torch.float32`` here, which only ``mc_deposit_torch.py`` asks for),
+    where each add of a small weight rounds to the bin's ulp, so a row
+    that takes millions of deposits (Monte-Carlo at a small eps) loses a
+    share of its mass. On the card the adds are atomics, so the order of a node's
     deposits, and the last bits of its sum, vary from run to run.
     """
     if max_steps is None:
         max_steps = default_max_steps(alpha)
     dev = starts.device
     n_pad = g.n_pad
-    counts = torch.zeros(num_rows * n_pad, dtype=torch.float64, device=dev)
+    counts = torch.zeros(num_rows * n_pad, dtype=deposit, device=dev)
     flat = rows.to(torch.int64) * n_pad
-    weights = weights.to(torch.float64)
+    weights = weights.to(deposit)
     cur = _first_hop(g, starts, generator) if no_zero_hop else starts
     active = torch.ones(starts.shape[0], dtype=torch.bool, device=dev)
     steps_done = 0

@@ -72,6 +72,9 @@ MODULES = [
     "ring_occupancy_torch",
     "gen_scaling_model_torch",
     "dist_protocol_ab",
+    "protocol_grid_torch",
+    "protocol_grid_reference",
+    "mc_deposit_torch",
 ]
 
 _PROBE = """
