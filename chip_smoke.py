@@ -232,7 +232,19 @@ script exits non-zero:
    made in a call ``HeldK3(single=True)`` holds; then ``[scale:1m:k3]``
    (K3 at the 1M tail's shape on 16 columns against its plain version, bit
    for bit, with ``embedding_bag`` and the bound). The phases print their
-   wall.
+   wall;
+16. the sweep profile (``profile_sweep_path``): ``[profile_sweep]``
+   (``profile_sweep_torch.run`` at B 256 on the bench graph, variants
+   ``plain``, ``hub512_bf16`` and ``hub4096_bf16``: the residual and the
+   annealed loop's sweeps, host and device ms, every call's K3 launches
+   held by ``HeldK3(single=True)``, each annealed variant's tie-expanded
+   top-10 sets at precision@10 >= 0.99 against the oracle of the same
+   sources, and its ``torch.profiler`` split from the one trace reader,
+   ``utils/timer.kernel_split``, naming K3 and the hub product);
+16b. the calibrated server (``serving_calibrate_path``):
+   ``[serving:calibrate]`` (``serving_latency_torch.run`` with
+   ``--calibrate`` at max batch 256, 2 s at 0.5 of capacity: the measured
+   constants, each prewarmed rung's path, p50/p99).
 
 Launch counts are reset before the serving path (7) and read after it,
 and again before and after the serving layer (9), the protocol path (10),
@@ -242,16 +254,18 @@ single-device references, read before ``[mesh:dryrun]``, and equal to
 the sum of the mesh engines' own counts)
 and the mesh protocol path (14: after its single-device references,
 before ``[mesh:scaling]``), the mesh across processes (14b: in each rank,
-before its engines and after them, summed over the ranks) and the scale
+before its engines and after them, summed over the ranks), the scale
 path (15: after
-``[hubs:constants]``, before ``[scale:1m:k3]``);
+``[hubs:constants]``, before ``[scale:1m:k3]``), the sweep profile (16:
+before ``[profile_sweep]`` and after it) and the calibrated server (16b:
+before ``[serving:calibrate]`` and after it, K3 launched and K0 once);
 a reset also forgets the probe, so each path runs K0 once before its
 first hand kernel. The
 weighted path must launch K3 only in its coefficient mode, and never its
 plain version; the mesh path must launch K3 in both modes. The last three
-lines are the kernels' JSON record (``launches`` summed over the eleven
-paths, K3's ``mesh``, ``mesh_protocol``, ``dist``, ``dataset_protocol``
-and ``scale`` entries
+lines are the kernels' JSON record (``launches`` summed over the twelve
+paths, K3's ``mesh``, ``mesh_protocol``, ``dist``, ``dataset_protocol``,
+``scale`` and ``profile_sweep`` entries
 with those paths' own;
 ``row_gather`` is a
 microbenchmark, as P1-P4 were on the TPU, so no path launches it; ``ms``,
@@ -278,6 +292,7 @@ from ppr_tpu_torch.utils.cuda_timing import (card_line, cuda_ms, graph_ms,
                                              host_us, l2_flusher)
 from ppr_tpu_torch.utils.report import (read_protocol_file,
                                         read_protocol_rows, row_failures)
+from ppr_tpu_torch.utils.timer import kernel_split
 
 ALPHA, EPS, K = 0.15, 0.5, 10
 ITERS = 100
@@ -1096,8 +1111,9 @@ def kernel_entry(line: str) -> str | None:
 
 def profile_batch(algo, sources, tag="profile",
                   trace="bench_trace.json") -> None:
-    """Trace one ``compute_topk_ids_batch``; print device time by aten
-    operator, the kernels' span and the idle share inside it."""
+    """Trace one ``compute_topk_ids_batch``; print device time by the aten
+    operator that launched it, the kernels' span and the idle share inside
+    it (``utils/timer.kernel_split``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1111,36 +1127,20 @@ def profile_batch(algo, sources, tag="profile",
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("cat") == "kernel"]
-    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events]
-    check(bool(kernels), "the profiler recorded no kernel")
-    busy_us, covered_to = 0.0, float("-inf")
-    for start, end in sorted(kernels):
-        busy_us += max(0.0, end - max(start, covered_to))
-        covered_to = max(covered_to, end)
-    span_us = covered_to - min(s for s, _ in kernels)
+    split = kernel_split(path, named={"K3": ("ppr_gather_kernel",)})
+    check(split["kernels"] > 0, "the profiler recorded no kernel")
     sweeps = algo.last_iters
-    print(f"[{tag}] one batch, {sweeps} sweeps: {len(kernels)} kernels, "
-          f"busy {busy_us / 1e3:.1f} ms in a span of {span_us / 1e3:.1f} ms "
-          f"(idle {100 * (1 - busy_us / span_us):.1f}%), host wall "
-          f"{wall_ms:.1f} ms; trace {path}")
-    mine = [e["dur"] for e in events
-            if "ppr_gather_kernel" in e.get("name", "")]
-    check(bool(mine), "the traced batch ran no K3")
-    print(f"[{tag}] {'K3 gather_segment_sum':32s} {sum(mine) / 1e3:9.2f} ms "
-          f"{100 * sum(mine) / busy_us:5.1f}% {len(mine):6d} launches "
-          f"{sum(mine) / 1e3 / sweeps:7.3f} ms/sweep")
-    # kernels also appear under their own names: keep the aten operators
-    ops = [e for e in prof.key_averages()
-           if e.key.startswith("aten::") and e.self_device_time_total > 0]
-    ops.sort(key=lambda e: -e.self_device_time_total)
-    for e in ops[:16]:
-        us = e.self_device_time_total
-        print(f"[{tag}] {e.key:32s} {us / 1e3:9.2f} ms "
-              f"{100 * us / busy_us:5.1f}% {e.count:6d} calls "
-              f"{us / 1e3 / sweeps:7.3f} ms/sweep")
+    print(f"[{tag}] one batch, {sweeps} sweeps: {split['kernels']} kernels, "
+          f"busy {split['busy_ms']:.1f} ms in a span of "
+          f"{split['span_ms']:.1f} ms (idle {100 * split['idle_share']:.1f}%)"
+          f", host wall {wall_ms:.1f} ms; trace {path}")
+    k3 = split["named"]["K3"]
+    check(k3["launches"] > 0, "the traced batch ran no K3")
+    for name, row in [("K3 gather_segment_sum", k3)] + [
+            (op["name"], op) for op in split["by_op"]]:
+        print(f"[{tag}] {name:32s} {row['ms']:9.2f} ms "
+              f"{100 * row['share']:5.1f}% {row['launches']:6d} launches "
+              f"{row['ms'] / sweeps:7.3f} ms/sweep")
 
 
 class EngineSpy:
@@ -1894,19 +1894,6 @@ def walk_phase(dev, g) -> dict:
     return out
 
 
-def path_choices(algo, widths) -> list:
-    """``(width, walk_ns, spmv_ns, annealed)`` of FORA top-k's path choice
-    at the bench query (k 10, eps 0.5) for each batch width."""
-    import math
-
-    eps = EPS * 0.5
-    omega0 = (eps + 2.0) * math.log(2.0 / algo.pfail) / eps / eps \
-        / algo.delta0
-    return [(b, algo.avg_rand_walk_time_ns * omega0,
-             algo._spmv_completion_ns(1.0, eps * algo.delta0, b),
-             algo._skip_push(eps, b)) for b in widths]
-
-
 def calibrate_phase(dev, ds) -> dict:
     """``[calibrate]``: ``calibrate.measure`` on the bench graph three
     times; the constants in the code beside them; the path FORA top-k
@@ -1934,14 +1921,14 @@ def calibrate_phase(dev, ds) -> dict:
     measured = ForaTopk(ds, ALPHA, K)
     calibrate.apply(measured, med)
     out = {}
-    for (b, walk, spmv, annealed), (_, mwalk, mspmv, mannealed) in zip(
-            path_choices(ours, rungs), path_choices(measured, rungs)):
-        out[b] = annealed
-        print(f"[calibrate] B {b:4d}: walks {walk / 1e3:.1f} us vs "
-              f"propagation {spmv / 1e3:.1f} us a query -> "
-              f"{'annealed' if annealed else 'push+walks'} (code's "
+    for w in rungs:
+        walk, spmv, path = ours.path_cost(EPS * 0.5, w)
+        mwalk, mspmv, mpath = measured.path_cost(EPS * 0.5, w)
+        out[w] = path == "annealed"
+        print(f"[calibrate] B {w:4d}: walks {walk / 1e3:.1f} us vs "
+              f"propagation {spmv / 1e3:.1f} us a query -> {path} (code's "
               f"constants); {mwalk / 1e3:.1f} vs {mspmv / 1e3:.1f} us -> "
-              f"{'annealed' if mannealed else 'push+walks'} (this run's)")
+              f"{mpath} (this run's)")
     check(out[2048] and measured._skip_push(EPS * 0.5, 2048),
           "[calibrate] the cost model does not pick the annealed loop at "
           "B 2048")
@@ -4014,6 +4001,116 @@ def scale_path(dev, ds, bench_sweeps: int) -> tuple[dict, dict]:
                       "wall_s": wall}
 
 
+def profile_sweep_path(dev, ds) -> tuple[dict, dict]:
+    """``[profile_sweep]``: ``profile_sweep_torch.run`` at B 256 on the
+    bench graph, variants ``plain``, ``hub512_bf16`` and ``hub4096_bf16``,
+    every residual and annealed call (the traced ones too) held by
+    ``HeldK3(single=True)``; each annealed variant's tie-expanded top-10
+    sets at precision@10 >= 0.99 against the oracle of the same sources
+    (the first 32); its trace split naming K3 and, for the hub variants,
+    the hub product. Returns the window's launches and the record."""
+    import profile_sweep_torch
+    from ppr_tpu_torch.models import fora
+    from ppr_tpu_torch.models.power_method import power_method_batch
+
+    t0 = time.perf_counter()
+    args = profile_sweep_torch.parse_args(
+        ["--hubs", "512,4096", "--skip-f32", "--trace"])
+    n_acc = 32
+    sources = np.random.default_rng(0).integers(0, ds.n, args.batch)
+    oracle = power_method_batch(ds.graph, sources[:n_acc], ALPHA,
+                                ITERS).cpu().numpy()
+    reset_launches()
+    keep = {}
+    with HeldK3(single=True) as held:
+        mark = held.mark()
+        rec = profile_sweep_torch.run(args, ds, keep=keep)
+        held.hold("profile_sweep", mark)
+    launches = read_launches()
+    check(not held.bad, f"[profile_sweep] K3 launches differ from sweeps x "
+          f"launches a sweep: {held.bad[:5]}")
+    check(launches["k3"] == held.got and launches["k0"] == 1,
+          f"[profile_sweep] launches {launches}: K3 outside the held calls "
+          f"or K0 not once")
+    check(np.array_equal(keep["sources"].cpu().numpy(), sources),
+          "[profile_sweep] the driver's sources are not the oracle's")
+    g = ds.graph
+    kcap = fora.topk_kcap(K, g.n_pad)
+    for name, row in rec["summary"].items():
+        extra = ""
+        if name.startswith("annealed_"):
+            vals, ids = fora._device_topk_epilogue(
+                g, keep["sources"], keep.pop(name), keep["onehot"], kcap)
+            prec = precision(oracle, tie_tolerant_ids(
+                vals.cpu().numpy(), ids.cpu().numpy(), n_acc, EPS / ds.n))
+            row["precision_at_10"] = prec
+            tr = rec["traces"][name]
+            named = tr["named"]
+            extra = (f", precision@10 {prec:.4f}; trace: {tr['kernels']} "
+                     f"kernels, busy {tr['busy_ms']:.2f} ms in a span of "
+                     f"{tr['span_ms']:.2f} (idle "
+                     f"{100 * tr['idle_share']:.1f}%), K3 "
+                     f"{named['K3']['ms']:.2f} ms "
+                     f"{100 * named['K3']['share']:.1f}% in "
+                     f"{named['K3']['launches']} launches, hub mm "
+                     f"{named['hub mm']['ms']:.2f} ms in "
+                     f"{named['hub mm']['launches']} launches; top "
+                     + "; ".join(f"{k['name'][:48]} {k['ms']:.2f} ms"
+                                 for k in tr["by_kernel"][:4]))
+            check(prec >= 0.99, f"[profile_sweep] {name} precision@10 {prec}")
+            check(named["K3"]["launches"] > 0,
+                  f"[profile_sweep] the trace of {name} names no K3")
+            check(("hub" not in name) or named["hub mm"]["launches"] > 0,
+                  f"[profile_sweep] the trace of {name} names no hub mm")
+        print(f"[profile_sweep] {name}: {row['iters']} sweeps, host "
+              f"{row['total_ms']:.2f} ms, device {row['device_ms']:.2f} ms, "
+              f"first call {row['first_call_s']:.2f} s{extra}")
+    wall = time.perf_counter() - t0
+    print(f"[profile_sweep] launches {launches}; wall {wall:.1f} s")
+    return launches, {"summary": rec["summary"], "traces": {
+        name: {key: tr[key] for key in ("kernels", "busy_ms", "span_ms",
+                                         "idle_share", "named", "by_kernel")}
+        for name, tr in rec["traces"].items()}, "wall_s": wall}
+
+
+def serving_calibrate_path(ds) -> tuple[dict, dict]:
+    """``[serving:calibrate]``: the latency driver's in-process run with
+    ``--calibrate`` at max batch 256, one load point of 2 s on the bench
+    graph: the measured constants, each prewarmed rung's path, p50/p99.
+    Its own launch window: the calibration and the served batches launch
+    K3, K0 once. Returns the window's launches and the record."""
+    import serving_latency_torch
+
+    t0 = time.perf_counter()
+    largs = serving_latency_torch.parse_args(
+        ["--calibrate", "--max-batch", "256", "--rates", "0.5",
+         "--duration-s", "2"])
+    reset_launches()
+    lrec = serving_latency_torch.run(largs, ds)
+    launches = read_launches()
+    cm = lrec["cost_model"]
+    [lrow] = lrec["rows"]
+    c = cm["constants"]
+    print(f"[serving:calibrate] measured {c['walk_ns']:.1f} ns a walk, "
+          f"{c['spmv_ns_per_edge']:.4f} ns an edge, "
+          f"{c['d2h_bytes_per_s'] / 1e9:.3f} GB/s to the host; paths "
+          + ", ".join(f"B {r['width']} {r['path']} ({r['prewarm_ms']:.1f} "
+                      f"ms)" for r in cm["rungs"])
+          + f"; capacity {lrec['capacity_qps']:.1f} qps, at 0.5 of it "
+          f"p50 {lrow['p50_ms']} p99 {lrow['p99_ms']} ms over "
+          f"{lrow['requests']} requests; launches {launches}; wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(cm["calibrate"] and all(
+        np.isfinite(c[key]) and c[key] > 0
+        for key in ("walk_ns", "spmv_ns_per_edge", "d2h_bytes_per_s")),
+        f"[serving:calibrate] constants {c}")
+    check(lrow["requests"] > 0 and lrow["p50_ms"] <= lrow["p99_ms"],
+          f"[serving:calibrate] row {lrow}")
+    check(launches["k3"] > 0 and launches["k0"] == 1,
+          f"[serving:calibrate] launches {launches}: no K3, or K0 not once")
+    return launches, {"constants": c, "rungs": cm["rungs"], "row": lrow}
+
+
 def main() -> int:
     import torch
 
@@ -4262,15 +4359,20 @@ def main() -> int:
     store = neostore_path(dev)
     # --- 15. the automatic hub count and the 1M cell ------------------------
     scale, scale_out = scale_path(dev, ds, sweeps)
+    # --- 16. the sweep profile and the calibrated server -------------------
+    sweep_prof, sweep_out = profile_sweep_path(dev, ds)
+    cal, cal_out = serving_calibrate_path(ds)
     launches = {k: serving[k] + layer[k] + protocol[k] + ds_proto[k]
                 + walks[k] + weighted[k] + mesh[k] + mesh_proto[k]
-                + spanning[k] + store[k] + scale[k] for k in serving}
+                + spanning[k] + store[k] + scale[k] + sweep_prof[k] + cal[k]
+                for k in serving}
     print(f"[launches] serving path {serving}, serving layer {layer}, "
           f"protocol path {protocol}, dataset protocol path {ds_proto}, "
           f"walk path {walks}, weighted path "
           f"{weighted}, mesh path {mesh}, mesh protocol path {mesh_proto}, "
           f"mesh across processes (summed over its ranks) {spanning}, "
-          f"store path {store}, scale path {scale}")
+          f"store path {store}, scale path {scale}, sweep profile "
+          f"{sweep_prof}, calibrated server {cal}")
     source = "ppr_tpu_torch/csrc/dense_power.cu"
     print(json.dumps({"kernels": [{
         "name": "dense_power_iterations",
@@ -4354,6 +4456,8 @@ def main() -> int:
         "dist": {"launches": spanning["k3"], **spanning_out},
         "dataset_protocol": {"launches": ds_proto["k3"], **ds_proto_out},
         "scale": {"launches": scale["k3"], **scale_out},
+        "profile_sweep": {"launches": sweep_prof["k3"], **sweep_out},
+        "serving_calibrate": {"launches": cal["k3"], **cal_out},
     }, {
         "name": "row_gather",
         "route": "cuda",

@@ -27,11 +27,19 @@ own steps, each between synchronised calls: ``forward_push_init``'s
 ``[B, n_pad]`` one-hot, the annealed loop, ``_device_topk_epilogue``, the
 ``.cpu()`` copies and the host tie expansion of every row.
 
-    python3 hub_knee_torch.py [--constants] [--out results/hub_knee_h100.json]
+``--db SPEC`` measures the graph ``cli.load_dataset`` loads for SPEC
+(``synth:blogcatalog``, a directory, an edge list) in place of
+``--n/--deg/--seed``'s. ``load_dataset("synth:NxD@S")`` builds
+with the default ``dense_threshold``, so a graph of at most 4096 nodes
+carries the dense matrix; the artifact's ``graph`` records the operator
+that ran (``n_pad``, ``m``, dense or sparse).
+
+    python3 hub_knee_torch.py [--constants] [--db SPEC] [--out FILE]
 
 Runs on the card; ``--device cpu`` runs on the CPU (small sizes, tests),
-and without a card it exits 1. It writes ``results/hub_knee_h100.json``
-and never the TPU's ``hub_knee_r4.json`` or ``hub_knee_b2048.json``.
+and without a card it exits 1. It writes ``results/hub_knee_h100.json``,
+or ``results/hub_knee_<db>_h100.json`` for a ``--db`` run, and never the
+TPU's ``hub_knee_r4.json`` or ``hub_knee_b2048.json``.
 """
 
 from __future__ import annotations
@@ -65,9 +73,33 @@ def parse_args(argv=None):
                          "REF_BATCH and at every batch (card only)")
     ap.add_argument("--host-split", default="2048,4096", metavar="B,H",
                     help="time one batch's parts apart ('none' skips)")
+    ap.add_argument("--db", default=None, metavar="SPEC",
+                    help="load this dataset (cli.load_dataset) in place of "
+                         "--n/--deg/--seed's graph")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--out", default="results/hub_knee_h100.json")
-    return ap.parse_args(argv)
+    ap.add_argument("--out", default=None,
+                    help="default results/hub_knee_h100.json, or "
+                         "results/hub_knee_<db>_h100.json with --db")
+    args = ap.parse_args(argv)
+    if args.out is None:
+        from ppr_tpu_torch.utils.drivers import default_out
+
+        args.out = default_out("hub_knee", args.db)
+    return args
+
+
+def load(args, dev):
+    """``(dataset, db)``: ``--db``'s dataset through ``cli.load_dataset``,
+    or ``synthetic_powerlaw(--n, --deg, seed=--seed, dense_threshold=0)``,
+    and the spec that names it."""
+    from ppr_tpu_torch.cli import load_dataset
+    from ppr_tpu_torch.graph.io import synthetic_powerlaw
+
+    if args.db is not None:
+        return load_dataset(args.db, device=dev), args.db
+    return (synthetic_powerlaw(args.n, args.deg, seed=args.seed,
+                               dense_threshold=0, device=dev),
+            f"synth:{args.n}x{args.deg}@{args.seed}")
 
 
 def ints(spec: str) -> list[int]:
@@ -185,20 +217,17 @@ def run(args) -> dict:
     import torch
 
     from ppr_tpu_torch.device import resolve_device
-    from ppr_tpu_torch.graph.io import synthetic_powerlaw
     from ppr_tpu_torch.models.fora import ForaTopk
     from ppr_tpu_torch.ops import hub_split as hsm
-    from ppr_tpu_torch.utils.drivers import describe
+    from ppr_tpu_torch.utils.drivers import describe, graph_record
 
     dev = resolve_device(args.device)
-    ds = synthetic_powerlaw(args.n, args.deg, seed=args.seed,
-                            dense_threshold=0, device=dev)
+    ds, db = load(args, dev)
     g = ds.graph
     bf16 = torch.bfloat16
     batches, hubs = ints(args.batches), ints(args.hubs)
     rule = hsm.auto_num_hubs(g, bf16)
-    out = {"db": f"synth:{args.n}x{args.deg}@{args.seed}",
-           "graph": {"n": g.n, "m": g.m, "n_pad": g.n_pad},
+    out = {"db": db, "graph": graph_record(g),
            "device": describe(dev), "k": args.k, "eps": args.eps,
            "reps": args.reps,
            "rule": {"auto_hubs": rule,

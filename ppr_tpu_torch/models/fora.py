@@ -505,12 +505,10 @@ class _ForaCostModel:
     def _d2h_rate(self) -> float:
         return float(self.d2h_bytes_per_s)
 
-    def _use_spmv(self, omega: float, rsum: float, target: float,
-                  batch: int = 1) -> bool:
-        """Complete by propagation (True) or by walks: ``completion`` when
-        it is not ``"auto"``, else the cheaper by the cost model."""
-        if self.completion != "auto":
-            return self.completion == "spmv"
+    def _completion_costs(self, omega: float, rsum: float, target: float,
+                          batch: int = 1) -> tuple[float, float]:
+        """The cost model's ``(walk_ns, spmv_ns)`` a query of completing
+        residue ``rsum`` by walks and by propagation."""
         walk_cost = self.avg_rand_walk_time_ns * omega * rsum
         spmv_cost = self._spmv_completion_ns(rsum, target, batch)
         if self._in_preprocessing:
@@ -520,6 +518,16 @@ class _ForaCostModel:
             per_entry_ns = 8 * 1e9 / self._d2h_rate()
             spmv_cost += self.graph.n * per_entry_ns
             walk_cost += min(float(self.graph.n), omega * rsum) * per_entry_ns
+        return walk_cost, spmv_cost
+
+    def _use_spmv(self, omega: float, rsum: float, target: float,
+                  batch: int = 1) -> bool:
+        """Complete by propagation (True) or by walks: ``completion`` when
+        it is not ``"auto"``, else the cheaper by the cost model."""
+        if self.completion != "auto":
+            return self.completion == "spmv"
+        walk_cost, spmv_cost = self._completion_costs(omega, rsum, target,
+                                                      batch)
         return spmv_cost < walk_cost
 
 
@@ -658,14 +666,25 @@ class ForaTopk(_ForaCostModel, PPRAlgorithm):
         self.last_round_walks: list[int] = []
         self._init_cost_constants()
 
-    def _skip_push(self, eps: float, batch: int) -> bool:
-        """Whether a query at ``eps'`` runs the annealed loop instead of
-        push rounds (``ppr_tpu/models/fora.py:997-1001``)."""
-        if self.push != "auto":
-            return self.push == "none"
+    def path_cost(self, eps: float, batch: int) -> tuple[float, float, str]:
+        """The path a query at ``eps'`` takes at batch width ``batch``:
+        ``(walk_ns, spmv_ns, path)``, the cost model's estimates a query of
+        completing the whole residue by walks and by propagation, and
+        ``"annealed"`` (the annealed propagation loop, no push rounds) or
+        ``"push+walks"`` (the reference's push rounds,
+        ``ppr_tpu/models/fora.py:997-1001``)."""
         omega0 = (eps + 2.0) * math.log(2.0 / self.pfail) / eps / eps \
             / self.delta0
-        return self._use_spmv(omega0, 1.0, eps * self.delta0, batch)
+        target = eps * self.delta0
+        walk_ns, spmv_ns = self._completion_costs(omega0, 1.0, target, batch)
+        skip = (self.push == "none" if self.push != "auto"
+                else self._use_spmv(omega0, 1.0, target, batch))
+        return walk_ns, spmv_ns, "annealed" if skip else "push+walks"
+
+    def _skip_push(self, eps: float, batch: int) -> bool:
+        """Whether a query at ``eps'`` runs the annealed loop instead of
+        push rounds."""
+        return self.path_cost(eps, batch)[2] == "annealed"
 
     def compute_topk_batch(self, sources: np.ndarray, k: int, param
                            ) -> np.ndarray:

@@ -5,8 +5,9 @@ The reference bakes in 400 ns a walk, measured on its JVM
 (Fora_Whole_Graph.java:35). :func:`measure` times a walk and an edge of a
 propagation sweep on the graph's device, and the rate of a copy to the
 host, in the format of ``models/fora._default_cost_constants``;
-:func:`apply` installs them on a FORA algorithm. On the card every timed
-region ends in ``torch.cuda.synchronize``.
+:func:`apply` installs them on a FORA algorithm; :func:`constants` reads
+them back. On the card every timed region ends in
+``torch.cuda.synchronize``.
 """
 
 from __future__ import annotations
@@ -82,3 +83,11 @@ def apply(algo, constants) -> None:
      algo.spmv_batch_amortized) = constants[:3]
     if len(constants) > 3:
         algo.d2h_bytes_per_s = constants[3]
+
+
+def constants(algo) -> dict:
+    """The cost constants a FORA algorithm holds, by name."""
+    return {"walk_ns": float(algo.avg_rand_walk_time_ns),
+            "spmv_ns_per_edge": float(algo.spmv_ns_per_edge),
+            "spmv_batch_amortized": bool(algo.spmv_batch_amortized),
+            "d2h_bytes_per_s": float(algo.d2h_bytes_per_s)}

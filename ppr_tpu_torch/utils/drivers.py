@@ -1,8 +1,10 @@
 """What the measurement drivers at the repository's root share
 (``hub_knee_torch.py``, ``scale_1m_torch.py``, ``scale_1m_knee_torch.py``,
-``ring_occupancy_torch.py``, ``gen_scaling_model_torch.py``): the device a
-run asks for, the card it ran on, host clocks around synchronised calls,
-peak device memory and the JSON artifact.
+``ring_occupancy_torch.py``, ``gen_scaling_model_torch.py``,
+``profile_sweep_torch.py``, ``serving_latency_torch.py``): the device a run
+asks for, the artifact a ``--db`` run writes, the card it ran on, host clocks
+(and CUDA events) around synchronised calls, peak device memory and the
+JSON artifact.
 
 A driver runs on the card unless given ``--device cpu``; without a card it
 exits 1 (:func:`no_card`). A CPU run records its counts and host times
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import sys
 import time
 
@@ -44,6 +47,30 @@ def describe(dev: torch.device) -> dict:
             "count": torch.cuda.device_count()}
 
 
+def db_tag(spec: str) -> str:
+    """A file-name part for ``--db``: ``blogcatalog`` for ``synth:blogcatalog``,
+    ``65536x16_42`` for ``synth:65536x16@42``, a path's last part
+    otherwise."""
+    spec = spec.removeprefix("synth:").rstrip("/")
+    return re.sub(r"[^A-Za-z0-9]+", "_", os.path.basename(spec)).strip("_")
+
+
+def graph_record(g) -> dict:
+    """The operator a run's sweeps used: the graph's padded size, edges and
+    whether it carries the dense matrix (``build_graph``'s
+    ``dense_threshold``) or only the sparse edges."""
+    return {"n": g.n, "m": g.m, "n_pad": g.n_pad,
+            "operator": "dense" if g.has_dense else "sparse"}
+
+
+def default_out(stem: str, db: str | None) -> str:
+    """``results/<stem>_h100.json``, or ``results/<stem>_<db>_h100.json``
+    for a ``--db`` run: a run on another graph never overwrites the
+    default graph's artifact."""
+    return (f"results/{stem}_h100.json" if db is None
+            else f"results/{stem}_{db_tag(db)}_h100.json")
+
+
 def timed(dev: torch.device, fn):
     """``(result, seconds)`` of ``fn()`` on a host clock, the device's
     queued work waited for before and after."""
@@ -52,6 +79,24 @@ def timed(dev: torch.device, fn):
     out = fn()
     synchronize(dev)
     return out, time.perf_counter() - t0
+
+
+def timed_events(dev: torch.device, fn):
+    """``(result, seconds, device_ms)``: :func:`timed`'s host clock and,
+    on the card, the milliseconds between two CUDA events recorded around
+    the same call on its stream (``None`` on the CPU)."""
+    if dev.type != "cuda":
+        out, s = timed(dev, fn)
+        return out, s, None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    synchronize(dev)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    synchronize(dev)
+    return out, time.perf_counter() - t0, start.elapsed_time(end)
 
 
 def reset_peak(dev: torch.device) -> None:

@@ -662,6 +662,7 @@ def profile(args) -> dict:
     from ppr_tpu_torch.models.backward_search import BackwardSearch
     from ppr_tpu_torch.utils import drivers
     from ppr_tpu_torch.utils.store import PPRStore
+    from ppr_tpu_torch.utils.timer import kernel_split
 
     [job] = [j for j in jobs_for(DATASETS, every_param=True)
              if j.tag == args.profile]
@@ -722,21 +723,7 @@ def profile(args) -> dict:
     if not state["wall"]:
         raise SystemExit(f"{PROG}: the job ended before its window closed")
     prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("cat") == "kernel"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
-    busy, covered = 0.0, float("-inf")
-    for s, e in spans:
-        busy += max(0.0, e - max(s, covered))
-        covered = max(covered, e)
-    span = (covered - spans[0][0]) if spans else 0.0
-    by_kernel: dict[str, list] = {}
-    for e in events:
-        k = by_kernel.setdefault(e["name"][:120], [0.0, 0])
-        k[0] += e["dur"]
-        k[1] += 1
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:16]
+    split = kernel_split(trace)
     wall_us = state["wall"] * 1e6
     out = {"tag": job.tag, "card": drivers.describe(
                torch.device(args.device))["card"],
@@ -744,12 +731,16 @@ def profile(args) -> dict:
                      + ("target batches" if job.algo == "BASE_WHOLE_GRAPH"
                         else "store shards" if prep else "query batches"),
            "wall_ms": round(wall_us / 1e3, 3),
-           "kernels": len(events), "busy_ms": round(busy / 1e3, 3),
-           "span_ms": round(span / 1e3, 3),
-           "idle_share_of_wall": round(1 - busy / wall_us, 4),
-           "by_kernel": [{"name": n, "ms": round(v[0] / 1e3, 3),
-                          "share": round(v[0] / busy, 4) if busy else None,
-                          "launches": v[1]} for n, v in top]}
+           "kernels": split["kernels"],
+           "busy_ms": round(split["busy_ms"], 3),
+           "span_ms": round(split["span_ms"], 3),
+           "idle_share_of_wall": round(1 - split["busy_ms"] * 1e3 / wall_us,
+                                       4),
+           "by_kernel": [{"name": k["name"][:120], "ms": round(k["ms"], 3),
+                          "share": (round(k["share"], 4)
+                                    if k["share"] is not None else None),
+                          "launches": k["launches"]}
+                         for k in split["by_kernel"]]}
     path = os.path.join(args.grid, f"profile_{job.tag}.json")
     drivers.write_json(path, out)
     shutil.rmtree(work, ignore_errors=True)

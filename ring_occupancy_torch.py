@@ -25,6 +25,8 @@ numbers. The artifact, ``results/ring_occupancy_h100.json``, is what
 ppr_tpu_torch.parallel.comm_model --frontier-json`` price the frontier
 ring with.
 
+``--skip-inflation`` leaves Part B out (no ``empirical`` entry).
+
     python3 ring_occupancy_torch.py [--graphs synth:65536x8@3] [--batch 512]
 
 Runs on the card; ``--device cpu`` runs on the CPU (small graphs, tests),
@@ -50,6 +52,8 @@ def parse_args(argv=None):
     ap.add_argument("--param", type=float, default=0.5)
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--skip-inflation", action="store_true",
+                    help="Part A only: no frontier-ring runs")
     ap.add_argument("--orders", default="degree,id")
     ap.add_argument("--caps", default="4,8,16,32")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -213,18 +217,19 @@ def run(args) -> dict:
               f"{agg['coverage_0.1250_mass_weighted']:.3f}", flush=True)
         entry = {"n": ds.graph.n, "m": ds.graph.m, "aggregate": agg,
                  "per_sweep": rows}
-        mesh = make_mesh(8, data=2, graph=4, devices=[dev] * 8)
-        infl = empirical_inflation(
-            ds, sources, args.param, mesh, k=args.k,
-            orders=tuple(args.orders.split(",")),
-            caps=tuple(int(x) for x in args.caps.split(",")))
-        entry["empirical"] = infl
-        print(f"[{PROG}]   dense ring {infl['dense_sweeps']} sweeps; "
-              + ", ".join(
-                  f"{x['block_order'][:3]}/C={x['capacity_blocks']}: "
-                  f"{x['sweep_inflation']:.2f}x (err "
-                  f"{x['oracle_err']:.1e})" for x in infl["frontier"]),
-              flush=True)
+        if not args.skip_inflation:
+            mesh = make_mesh(8, data=2, graph=4, devices=[dev] * 8)
+            infl = empirical_inflation(
+                ds, sources, args.param, mesh, k=args.k,
+                orders=tuple(args.orders.split(",")),
+                caps=tuple(int(x) for x in args.caps.split(",")))
+            entry["empirical"] = infl
+            print(f"[{PROG}]   dense ring {infl['dense_sweeps']} sweeps; "
+                  + ", ".join(
+                      f"{x['block_order'][:3]}/C={x['capacity_blocks']}: "
+                      f"{x['sweep_inflation']:.2f}x (err "
+                      f"{x['oracle_err']:.1e})" for x in infl["frontier"]),
+                  flush=True)
         out["graphs"][spec] = entry
     return out
 

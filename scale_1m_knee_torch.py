@@ -15,10 +15,16 @@ recorded with the bytes the allocator was asked for and what it held, and
 the cache is emptied before the next point. Those points are the batch
 ceiling, which is a result of the sweep. Any other exception ends the run.
 
-    python3 scale_1m_knee_torch.py [--out results/scale_1m_knee_h100.json]
+``--db SPEC`` sweeps the graph ``cli.load_dataset`` loads for SPEC in
+place of ``--n/--deg/--seed``'s (``hub_knee_torch.load``); the artifact's
+``graph`` records the operator that ran.
+
+    python3 scale_1m_knee_torch.py [--db SPEC] [--out FILE]
 
 Runs on the card; ``--device cpu`` runs on the CPU (small ``--n``, tests),
-and without a card it exits 1.
+and without a card it exits 1. It writes
+``results/scale_1m_knee_h100.json``, or
+``results/scale_1m_knee_<db>_h100.json`` for a ``--db`` run.
 """
 
 from __future__ import annotations
@@ -43,9 +49,19 @@ def parse_args(argv=None):
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--eps", type=float, default=0.5)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--db", default=None, metavar="SPEC",
+                    help="load this dataset (cli.load_dataset) in place of "
+                         "--n/--deg/--seed's graph")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--out", default="results/scale_1m_knee_h100.json")
-    return ap.parse_args(argv)
+    ap.add_argument("--out", default=None,
+                    help="default results/scale_1m_knee_h100.json, or "
+                         "results/scale_1m_knee_<db>_h100.json with --db")
+    args = ap.parse_args(argv)
+    if args.out is None:
+        from ppr_tpu_torch.utils.drivers import default_out
+
+        args.out = default_out("scale_1m_knee", args.db)
+    return args
 
 
 def oom_row(batch: int, hubs: int, err: Exception, dev) -> dict:
@@ -72,19 +88,18 @@ def run(args) -> dict:
     returns the record."""
     import torch
 
-    import scale_1m_torch
-    from hub_knee_torch import ALPHA, ints, topk_point
+    from hub_knee_torch import ALPHA, ints, load, topk_point
     from ppr_tpu_torch.device import resolve_device
     from ppr_tpu_torch.models.fora import ForaTopk
     from ppr_tpu_torch.ops.hub_split import auto_num_hubs
-    from ppr_tpu_torch.utils.drivers import describe, reset_peak, write_json
+    from ppr_tpu_torch.utils.drivers import (describe, graph_record,
+                                             reset_peak, write_json)
 
     dev = resolve_device(args.device)
-    ds = scale_1m_torch.build(args, dev)
+    ds, db = load(args, dev)
     g = ds.graph
     rule = auto_num_hubs(g, torch.bfloat16)
-    state = {"db": f"synth:{args.n}x{args.deg}@{args.seed}",
-             "graph": {"n": g.n, "m": g.m, "n_pad": g.n_pad},
+    state = {"db": db, "graph": graph_record(g),
              "device": describe(dev), "k": args.k, "eps": args.eps,
              "reps": args.reps, "auto_hubs": rule, "rows": []}
     print(f"[{PROG}] {state['db']} n={g.n} m={g.m} on "

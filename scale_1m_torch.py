@@ -24,7 +24,14 @@ It writes ``results/scale_1m_h100.json`` with the JAX artifact's keys
 (``results/scale_1m_nodes.json``) and more. Unlike the JAX script, no phase
 catches its own failure: a failure exits non-zero.
 
-    python3 scale_1m_torch.py [--batch 256] [--out results/scale_1m_h100.json]
+``--phase topk|wg|walks`` runs one phase (top-k with its recall oracle,
+whole-graph with the same oracle rows, or walks) and merges its keys into
+the artifact already at ``--out`` when that artifact's ``n`` and ``m`` are
+this graph's; otherwise it writes its own. ``--quick`` is the JAX
+script's small run (n 2^14, degree 8, B 16, whole-graph B 4, 2^16
+walkers) and writes no artifact.
+
+    python3 scale_1m_torch.py [--batch 256] [--phase P] [--quick] [--out F]
 
 Runs on the card; ``--device cpu`` runs on the CPU (small ``--n``, tests),
 and without a card it exits 1.
@@ -50,9 +57,20 @@ def parse_args(argv=None):
     ap.add_argument("--acc-queries", type=int, default=4)
     ap.add_argument("--wg-batch", type=int, default=16)
     ap.add_argument("--walkers", type=int, default=1 << 20)
+    ap.add_argument("--quick", action="store_true",
+                    help="n 2^14, deg 8, B 16, wg-batch 4, 2^16 walkers; "
+                         "no artifact")
+    ap.add_argument("--phase", default="all",
+                    choices=["all", "topk", "wg", "walks"],
+                    help="run one phase, merged into the artifact at --out "
+                         "when its n and m match")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--out", default="results/scale_1m_h100.json")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.quick:
+        args.n, args.deg, args.batch, args.wg_batch = 1 << 14, 8, 16, 4
+        args.walkers = 1 << 16
+    return args
 
 
 def build(args, dev):
@@ -69,22 +87,15 @@ def run(args, ds=None) -> dict:
     return measure(args, ds)[0]
 
 
-def measure(args, ds=None) -> tuple[dict, np.ndarray]:
+def measure(args, ds=None) -> tuple[dict, np.ndarray | None]:
     """``run``'s record and the oracle rows of its accuracy sources
     (``record["acc_sources"]``), ``[acc, n_pad]`` numpy, for a caller's own
-    checks of the oracle."""
-    import torch
-
+    checks of the oracle (``None`` when ``--phase walks`` needs none)."""
     from ppr_tpu_torch import native
     from ppr_tpu_torch.device import resolve_device
     from ppr_tpu_torch.models import AlgoConf
     from ppr_tpu_torch.models.power_method import power_method_batch
-    from ppr_tpu_torch.ops.topk import (topk_ids_with_ties,
-                                        topk_ids_with_ties_from_pairs)
-    from ppr_tpu_torch.ops.walk import weighted_walk_counts
-    from ppr_tpu_torch.utils.drivers import (describe, peak_gb, reset_peak,
-                                             timed)
-    from ppr_tpu_torch.utils.metrics import precision_at_k
+    from ppr_tpu_torch.utils.drivers import describe, timed
 
     dev = resolve_device(args.device)
     if ds is None:
@@ -94,8 +105,10 @@ def measure(args, ds=None) -> tuple[dict, np.ndarray]:
     g = ds.graph
     rng = np.random.default_rng(0)
     sources = rng.integers(0, g.n, size=args.batch)
-    out = {"config": "1M-node single-host" if args.n == 1 << 20
-           else f"{args.n}-node", "n": g.n, "m": g.m, "n_pad": g.n_pad,
+    phases = {"topk", "wg", "walks"} if args.phase == "all" else {args.phase}
+    out = {"config": "quick" if args.quick else "1M-node single-host"
+           if args.n == 1 << 20 else f"{args.n}-node",
+           "n": g.n, "m": g.m, "n_pad": g.n_pad,
            "topk_batch": args.batch, "device": describe(dev),
            "builder": "native" if native.available() else "numpy",
            "build_s": build_s}
@@ -104,13 +117,36 @@ def measure(args, ds=None) -> tuple[dict, np.ndarray]:
 
     # --- recall oracle first ---
     acc = np.asarray(sources[: args.acc_queries], np.int32)
-    oracle = power_method_batch(g, acc, ALPHA, 100).cpu().numpy()
-    oracle = oracle[: len(acc)]
-    out["oracle_rows"] = len(acc)
-    out["acc_sources"] = acc.tolist()
-
-    # --- top-k serving at the automatic hub count ---
+    oracle = None
+    if phases & {"topk", "wg"}:
+        oracle = power_method_batch(g, acc, ALPHA, 100).cpu().numpy()
+        oracle = oracle[: len(acc)]
+        out["oracle_rows"] = len(acc)
+        out["acc_sources"] = acc.tolist()
     conf = AlgoConf(ALPHA, seed=7)
+    hs = None
+    if "topk" in phases:
+        hs = topk_phase(args, ds, conf, sources, acc, oracle, out)
+    if "wg" in phases:
+        wg_phase(args, ds, conf, sources, acc, oracle, hs, out)
+    del hs
+    if "walks" in phases:
+        walk_phase(args, g, rng, out)
+    return out, oracle
+
+
+def topk_phase(args, ds, conf, sources, acc, oracle, out):
+    """Top-k serving at the automatic hub count, recall@10 against the
+    oracle rows; returns the hub split for the whole-graph phase."""
+    import torch
+
+    from ppr_tpu_torch.ops.topk import (topk_ids_with_ties,
+                                        topk_ids_with_ties_from_pairs)
+    from ppr_tpu_torch.utils.drivers import peak_gb, reset_peak, timed
+    from ppr_tpu_torch.utils.metrics import precision_at_k
+
+    g = ds.graph
+    dev = g.device
     fora = conf.set_conf_fora_topk(ds, K)
     fora.enable_hub_split("auto", dtype=torch.bfloat16)
     hs = fora.hub_split
@@ -149,10 +185,26 @@ def measure(args, ds=None) -> tuple[dict, np.ndarray]:
     del fora, vals, ids
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    return hs
 
-    # --- whole-graph, dense rows to the host included ---
+
+def wg_phase(args, ds, conf, sources, acc, oracle, hs, out):
+    """Whole-graph at the automatic hub count (the top-k phase's split,
+    or its own), dense rows to the host included, held to the oracle rows
+    of the accuracy sources."""
+    import torch
+
+    from ppr_tpu_torch.ops.topk import topk_ids_with_ties
+    from ppr_tpu_torch.utils.drivers import peak_gb, reset_peak, timed
+    from ppr_tpu_torch.utils.metrics import precision_at_k
+
+    g = ds.graph
+    dev = g.device
     wg = conf.set_conf_fora_whole_graph(ds)
-    wg.hub_split = hs
+    if hs is None:
+        wg.enable_hub_split("auto", dtype=torch.bfloat16)
+    else:
+        wg.hub_split = hs
     wg_sources = sources[: args.wg_batch]
     reset_peak(dev)
     wg.compute_whole_graph_batch(wg_sources, EPS)       # warm-up
@@ -186,11 +238,19 @@ def measure(args, ds=None) -> tuple[dict, np.ndarray]:
           f"rounds, mass {out['mass_conservation']:.9f}; on the {n_acc} "
           f"accuracy sources precision@10 {out['wg_precision_at_10']:.4f}, "
           f"relative error above 1/n {rel:.4f}", flush=True)
-    del wg, dense, hs
+    del wg, dense
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    # --- raw walk throughput ---
+
+def walk_phase(args, g, rng, out):
+    """Raw walks a second over ``--walkers`` walkers."""
+    import torch
+
+    from ppr_tpu_torch.ops.walk import weighted_walk_counts
+    from ppr_tpu_torch.utils.drivers import timed
+
+    dev = g.device
     starts = torch.as_tensor(rng.integers(0, g.n, args.walkers),
                              dtype=torch.int32, device=dev)
     rows = torch.zeros(args.walkers, dtype=torch.int64, device=dev)
@@ -208,7 +268,24 @@ def measure(args, ds=None) -> tuple[dict, np.ndarray]:
     print(f"[{PROG}] walks: {out['walks_per_sec']:.4g} a second over "
           f"{args.walkers} walkers, mass {out['walks_mass']:.9f}",
           flush=True)
-    return out, oracle
+
+
+def merged(path: str, out: dict) -> dict:
+    """``out`` over the artifact at ``path`` when that artifact is of the
+    same graph (``n`` and ``m``): one phase's keys replace its own and
+    keep the other phases'. Otherwise ``out`` alone."""
+    import json
+    import os
+
+    if not os.path.exists(path):
+        return out
+    with open(path) as f:
+        prior = json.load(f)
+    if (prior.get("n"), prior.get("m")) != (out["n"], out["m"]):
+        print(f"[{PROG}] {path} holds another graph (n={prior.get('n')} "
+              f"m={prior.get('m')}): not merged", flush=True)
+        return out
+    return {**prior, **out}
 
 
 def main(argv=None) -> int:
@@ -218,6 +295,10 @@ def main(argv=None) -> int:
     if no_card(args.device, PROG):
         return 1
     out = run(args)
+    if args.quick:
+        return 0
+    if args.phase != "all":
+        out = merged(args.out, out)
     write_json(args.out, out)
     print(f"[{PROG}] wrote {args.out}")
     return 0

@@ -17,7 +17,14 @@ submit-to-result latency percentiles per rate
 as a subprocess instead, the full wire path (pipe, JSON, scheduler,
 device); its ``--rates`` are absolute qps. Everything runs on the card
 unless ``--device cpu``, e.g. ``--device cpu --db synth:2048x8
---duration-s 3 --rates 0.25 --max-batch 32``.
+--duration-s 3 --rates 0.25 --max-batch 32``; without a card it exits 1.
+
+``--calibrate`` measures FORA's cost constants on the graph at start-up
+(``PPRService(calibrate=True)``; in daemon mode the daemon's
+``--calibrate``). The in-process artifact records the constants the cost
+model used and the path it takes at each prewarmed rung (the annealed loop
+or push+walks, ``ForaTopk.path_cost``). To compare the two, run the script
+without and with ``--calibrate`` in turns, each with its own ``--out``.
 """
 
 from __future__ import annotations
@@ -96,11 +103,8 @@ def run_rate(server, sources, rate_qps: float, duration_s: float,
     }
 
 
-def run_daemon_mode(args) -> int:
-    """Drive the stdio JSON-lines daemon as a SUBPROCESS: arrival times are
-    Poisson like the in-process mode, latency is measured request-write to
-    response-read per request id — the full production wire path (pipe +
-    JSON + scheduler + device)."""
+def daemon_cmd(args) -> list[str]:
+    """The daemon's command line for ``args``."""
     cmd = [sys.executable, "-m", "ppr_tpu_torch.serving", "--db", args.db,
            "--device", args.device,
            "--alpha", str(args.alpha), "--eps", str(args.eps),
@@ -111,12 +115,23 @@ def run_daemon_mode(args) -> int:
         cmd += ["--early-exit"]
     if args.cohort:
         cmd += ["--cohort"]
+    if args.calibrate:
+        cmd += ["--calibrate"]
     if args.slo_ms:
         cmd += ["--slo-ms", str(args.slo_ms)]
     if args.prewarm:
         cmd += ["--prewarm"]
     if args.precomputed:
         cmd += ["--precomputed", args.precomputed]
+    return cmd
+
+
+def run_daemon_mode(args) -> int:
+    """Drive the stdio JSON-lines daemon as a SUBPROCESS: arrival times are
+    Poisson like the in-process mode, latency is measured request-write to
+    response-read per request id — the full production wire path (pipe +
+    JSON + scheduler + device)."""
+    cmd = daemon_cmd(args)
     proc = subprocess.Popen(cmd, stdin=subprocess.PIPE,
                             stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, bufsize=1)
@@ -218,12 +233,12 @@ def _drive_daemon(proc, args) -> int:
     return proc.returncode
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--db", default="synth:65536x16@42")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the graph and the engine run (default cuda: "
-                         "exits with an error when no card is visible)")
+                         "exits 1 when no card is visible)")
     ap.add_argument("--alpha", type=float, default=0.15)
     ap.add_argument("--eps", type=float, default=0.5)
     ap.add_argument("--k", type=int, default=10)
@@ -242,6 +257,10 @@ def main(argv=None) -> int:
     ap.add_argument("--cohort", action="store_true",
                     help="per-row cohort streaming (requests resolve as "
                          "their rows retire)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="measure the walk, sweep and transfer costs at "
+                         "start-up so FORA's cost model picks each width's "
+                         "path with this graph's and card's constants")
     ap.add_argument("--slo-ms", type=float, default=None,
                     help="run the server's latency-targeted adaptive "
                          "dispatch cap instead of the static --max-batch")
@@ -256,16 +275,20 @@ def main(argv=None) -> int:
                     help="drive the stdio daemon as a subprocess (full "
                          "wire path); --rates must be absolute qps")
     ap.add_argument("--out", default="build/serving_latency_torch.json")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    if args.daemon:
-        return run_daemon_mode(args)
 
+def run(args, ds=None) -> dict:
+    """The in-process measurement's record; ``ds`` is the dataset when the
+    caller loaded it (``args.db`` otherwise)."""
     from ppr_tpu_torch.cli import load_dataset
     from ppr_tpu_torch.service import PPRService
     from ppr_tpu_torch.serving import PPRBatchServer
+    from ppr_tpu_torch.utils import calibrate
+    from ppr_tpu_torch.utils.drivers import describe
 
-    ds = load_dataset(args.db, device=args.device)
+    if ds is None:
+        ds = load_dataset(args.db, device=args.device)
     print(f"dataset {ds.name}: n={ds.graph.n} m={ds.graph.m} on "
           f"{ds.graph.device}", flush=True)
     if args.precomputed:
@@ -277,6 +300,7 @@ def main(argv=None) -> int:
         svc = PPRService.from_dataset(ds, alpha=args.alpha, eps=args.eps,
                                       k=args.k, hub_split=args.hub_split,
                                       early_exit=args.early_exit,
+                                      calibrate=args.calibrate,
                                       cohort=args.cohort)
     rng = random.Random(args.seed)
     sources = [rng.randrange(ds.graph.n) for _ in range(args.queries)]
@@ -288,8 +312,9 @@ def main(argv=None) -> int:
     # min_batch, so a flood dispatches as narrow batches.
     with PPRBatchServer(svc, max_batch=args.max_batch,
                         slo_ms=args.slo_ms, prewarm=True) as server:
+        prewarm_ms = dict(sorted(server._svc_time_ms.items()))
         print(f"prewarmed svc_time_ms: "
-              f"{ {w: round(t) for w, t in sorted(server._svc_time_ms.items())} }",
+              f"{ {w: round(t) for w, t in prewarm_ms.items()} }",
               flush=True)
         server.stats.latencies_ms.clear()
 
@@ -319,6 +344,7 @@ def main(argv=None) -> int:
     out = {
         "dataset": {"name": ds.name, "n": ds.graph.n, "m": ds.graph.m},
         "device": str(ds.graph.device),
+        "card": describe(ds.graph.device)["card"],
         "capacity_qps": round(cap, 2),
         # capacity_qps is measured WITH the active policy (the SLO cap, if
         # any); capacity_static_est_qps is the static-cap ceiling derived
@@ -332,6 +358,23 @@ def main(argv=None) -> int:
         "duration_s": args.duration_s,
         "rows": rows,
     }
+    algo = svc._topk_algo
+    if hasattr(algo, "path_cost"):
+        # the constants the cost model used, measured or the code's, and
+        # the path it takes at each prewarmed rung (at eps', the query's
+        # eps halved, as the loop takes it)
+        out["cost_model"] = {
+            "calibrate": args.calibrate,
+            "constants": calibrate.constants(algo),
+            "rungs": [dict(zip(("walk_ns", "spmv_ns", "path"),
+                               algo.path_cost(args.eps * 0.5, w)),
+                           width=w, prewarm_ms=t)
+                      for w, t in prewarm_ms.items()]}
+        print("cost model (" + ("calibrated" if args.calibrate else
+                                "the code's constants") + "): "
+              + json.dumps(out["cost_model"]["constants"]) + "; "
+              + ", ".join(f"B {ch['width']} {ch['path']}"
+                          for ch in out["cost_model"]["rungs"]), flush=True)
     if args.slo_ms:
         out["slo_ms"] = args.slo_ms
         out["final_dispatch_cap"] = server._cap()
@@ -341,8 +384,19 @@ def main(argv=None) -> int:
                               sorted(server._svc_time_ms.items())}
         out["cap_moves"] = server.stats.cap_moves
         out["prewarm_failed_widths"] = server.stats.prewarm_failed_widths
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    Path(args.out).write_text(json.dumps(out, indent=1) + "\n")
+    return out
+
+
+def main(argv=None) -> int:
+    from ppr_tpu_torch.utils.drivers import no_card, write_json
+
+    args = parse_args(argv)
+    if no_card(args.device, "serving_latency_torch"):
+        return 1
+    if args.daemon:
+        return run_daemon_mode(args)
+    out = run(args)
+    write_json(args.out, out)
     print(f"wrote {args.out}")
     return 0
 

@@ -83,3 +83,70 @@ def test_serving_latency_torch_on_the_cpu(tmp_path):
     assert rec["device"] == "cpu" and rec["capacity_qps"] > 0
     [row] = rec["rows"]
     assert row["requests"] > 0 and row["p50_ms"] <= row["p99_ms"]
+
+
+LATENCY_CPU = ["--device", "cpu", "--db", "synth:300x3@3", "--max-batch",
+               "16", "--rates", "0.25", "--duration-s", "0.3", "--queries",
+               "64"]
+
+
+def test_serving_latency_calibrate_reaches_the_service(tmp_path,
+                                                      monkeypatch):
+    """``--calibrate`` builds ``PPRService(calibrate=True)``; the artifact
+    holds the constants it measured and the path at every prewarmed rung,
+    and without the flag the code's constants."""
+    import serving_latency_torch
+    from ppr_tpu_torch.models.fora import _default_cost_constants
+    from ppr_tpu_torch.service import PPRService
+
+    seen = []
+    init = PPRService.__init__
+
+    def spy(self, *a, **kw):
+        seen.append(kw.get("calibrate"))
+        init(self, *a, **kw)
+
+    monkeypatch.setattr(PPRService, "__init__", spy)
+    recs = {}
+    for flag in (False, True):
+        out = tmp_path / f"{flag}.json"
+        assert serving_latency_torch.main(
+            LATENCY_CPU + ["--out", str(out)]
+            + (["--calibrate"] if flag else [])) == 0
+        recs[flag] = json.loads(out.read_text())["cost_model"]
+    assert seen == [False, True]
+    code = _default_cost_constants(torch.device("cpu"))
+    assert recs[False]["calibrate"] is False
+    assert recs[False]["constants"]["walk_ns"] == code[0]
+    assert recs[True]["calibrate"] is True
+    assert recs[True]["constants"]["walk_ns"] != code[0]
+    for rec in recs.values():
+        assert [r["width"] for r in rec["rungs"]] == [8, 16]
+        for r in rec["rungs"]:
+            assert r["path"] in ("annealed", "push+walks")
+            assert r["prewarm_ms"] > 0 and r["walk_ns"] > 0
+
+
+@pytest.mark.parametrize("flag", [False, True])
+def test_serving_latency_daemon_cmd_carries_calibrate(flag):
+    """Daemon mode passes ``--calibrate`` to the daemon, as the JAX
+    script does (``scripts/serving_latency.py:114-115``)."""
+    import serving_latency_torch
+
+    args = serving_latency_torch.parse_args(
+        ["--daemon", "--device", "cpu", "--db", "synth:300x3@3"]
+        + (["--calibrate"] if flag else []))
+    cmd = serving_latency_torch.daemon_cmd(args)
+    assert cmd[1:3] == ["-m", "ppr_tpu_torch.serving"]
+    assert ("--calibrate" in cmd) == flag
+    assert cmd[cmd.index("--device") + 1] == "cpu"
+
+
+def test_serving_latency_needs_a_card(monkeypatch, tmp_path):
+    import serving_latency_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "x.json"
+    assert serving_latency_torch.main(["--out", str(out)]) == 1
+    assert serving_latency_torch.main(["--daemon", "--out", str(out)]) == 1
+    assert not out.exists()

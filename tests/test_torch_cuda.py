@@ -20,6 +20,7 @@ CPU with the same sweep count. The ``coo`` backend adds with atomics: within
 1e-6 of the sorted one."""
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -1287,3 +1288,78 @@ def test_nccl_refuses_two_ranks_on_one_card(cuda, tmp_path):
              or "Duplicate GPU" in line]
     print("NCCL's words:", *words[:6], sep="\n  ")
     assert words
+
+
+# -- the sweep profile and the one trace reader -----------------------------
+
+def test_profile_sweep_on_the_card(cuda, tmp_path, monkeypatch):
+    """``profile_sweep_torch.py --quick --hubs 128 --trace`` on the card and
+    on the CPU: ``device_ms`` (CUDA events around the call) beside every
+    host wall; the CPU's sweeps for ``plain`` (K3 is its plain version bit
+    for bit), within one sweep for the hub variants (cuBLAS adds the hub
+    product in another order); each traced annealed variant's split names
+    K3, and the hub variants' the hub product, by kernel and by operator."""
+    import profile_sweep_torch
+
+    monkeypatch.chdir(tmp_path)
+    recs = {}
+    for dev in ("cpu", "cuda"):
+        recs[dev] = profile_sweep_torch.run(profile_sweep_torch.parse_args(
+            ["--quick", "--hubs", "128", "--device", dev, "--trace"]))
+    cpu, card = recs["cpu"]["summary"], recs["cuda"]["summary"]
+    assert set(card) == set(cpu)
+    for name, row in card.items():
+        assert 0 < row["device_ms"] <= row["total_ms"] + 0.5, name
+        assert cpu[name]["device_ms"] is None
+        if name.endswith("plain"):
+            assert row["iters"] == cpu[name]["iters"], name
+        else:
+            assert abs(row["iters"] - cpu[name]["iters"]) <= 1, name
+    assert set(recs["cuda"]["traces"]) == {"annealed_plain",
+                                           "annealed_hub128_bf16"}
+    for tag, tr in recs["cuda"]["traces"].items():
+        print(tag, [k["name"][:60] for k in tr["by_kernel"][:8]],
+              [o["name"] for o in tr["by_op"][:8]])
+        assert tr["kernels"] > 0 and 0 < tr["busy_ms"] <= tr["span_ms"]
+        assert 0 <= tr["idle_share"] < 1
+        assert tr["named"]["K3"]["launches"] > 0
+        assert any("ppr_gather_kernel" in k["name"] for k in tr["by_kernel"])
+        if "hub" in tag:
+            assert tr["named"]["hub mm"]["launches"] > 0
+            assert any(o["name"] == "aten::mm" for o in tr["by_op"])
+
+
+def test_kernel_split_of_a_real_trace(cuda, tmp_path):
+    """Three K3 launches and two hub-sized products, traced: the reader
+    counts each launch once, K3 by name, the products under ``aten::mm``,
+    and busy time within the span."""
+    from ppr_tpu_torch.utils.timer import kernel_split, trace
+
+    g = synthetic_powerlaw(4096, 8, seed=3, dense_threshold=0,
+                           device=cuda).graph
+    table = torch.rand((g.n_pad, 64), device=cuda)
+    mat = torch.rand((g.n_pad, 512), device=cuda).to(torch.bfloat16)
+    x = table.to(torch.bfloat16)
+    row_gather.gather_segment_sum(table, g.edge_src_bydst, g.bydst_ptr)
+    torch.mm(mat.T, x, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    with trace(str(tmp_path)):
+        # idle margins: the profiler keeps only the device events that fall
+        # inside its window, and this window's work takes well under 1 ms
+        time.sleep(0.05)
+        for _ in range(3):
+            row_gather.gather_segment_sum(table, g.edge_src_bydst, g.bydst_ptr)
+        for _ in range(2):
+            torch.mm(mat.T, x, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    split = kernel_split(str(tmp_path / "trace.json"),
+                         named={"K3": ("ppr_gather_kernel",)})
+    print([k["name"][:60] for k in split["by_kernel"]],
+          [o["name"] for o in split["by_op"]])
+    assert split["named"]["K3"]["launches"] == 3
+    assert 0 < split["busy_ms"] <= split["span_ms"]
+    assert sum(k["ms"] for k in split["by_kernel"]) >= \
+        split["busy_ms"] * (1 - 1e-9)
+    mm = [o for o in split["by_op"] if o["name"] == "aten::mm"]
+    assert mm and mm[0]["launches"] >= 2

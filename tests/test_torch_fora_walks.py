@@ -121,7 +121,9 @@ def test_cost_model_matches_jax(datasets, cls, completion):
 @pytest.mark.parametrize("k", [1, 10, 50])
 def test_topk_path_choice_matches_jax(datasets, eps, k):
     """``push="auto"`` (the default in both packages) skips the push rounds
-    exactly where the JAX package does (``ppr_tpu/models/fora.py:997``)."""
+    exactly where the JAX package does (``ppr_tpu/models/fora.py:997``);
+    ``path_cost`` reports the walk and propagation estimates the JAX cost
+    model weighs there, and the choice; another ``push`` decides alone."""
     for kind in ("sparse", "dense"):
         jds, tds = datasets[kind]
         t = tfora.ForaTopk(tds, ALPHA, k)
@@ -132,6 +134,15 @@ def test_topk_path_choice_matches_jax(datasets, eps, k):
         for b in (8, 64, 2048):
             want = j._use_spmv(omega0, 1.0, e * j.delta0, b)
             assert t._skip_push(e, b) == want
+            walk, spmv, path = t.path_cost(e, b)
+            assert walk == pytest.approx(j.avg_rand_walk_time_ns * omega0,
+                                         rel=1e-12)
+            assert spmv == j._spmv_completion_ns(1.0, e * j.delta0, b)
+            assert path == ("annealed" if want else "push+walks")
+        t.push = "none"
+        assert t.path_cost(e, 8)[2] == "annealed"
+        t.push = "reference"
+        assert t.path_cost(e, 2048)[2] == "push+walks"
 
 
 def _residual_pair(datasets, kind, hubs, dtype, b=16, target=1e-4):

@@ -75,6 +75,7 @@ MODULES = [
     "protocol_grid_torch",
     "protocol_grid_reference",
     "mc_deposit_torch",
+    "profile_sweep_torch",
 ]
 
 _PROBE = """

@@ -208,3 +208,17 @@ def test_exits_without_a_card(mod, monkeypatch, tmp_path):
     assert mod.main(["--out", str(out)]) == 1
     assert not out.exists()
     assert mod.parse_args([]).out.endswith("_h100.json")
+
+
+def test_skip_inflation_leaves_part_b_out(artifact, tmp_path):
+    """``--skip-inflation``: Part A as the full run's, no ``empirical``."""
+    out = tmp_path / "a.json"
+    assert ring_occupancy_torch.main([
+        "--device", "cpu", "--graphs", SPEC, "--batch", "16",
+        "--skip-inflation", "--out", str(out)]) == 0
+    entry = json.loads(out.read_text())["graphs"][SPEC]
+    full = json.loads(artifact.read_text())["graphs"][SPEC]
+    assert set(entry) == {"n", "m", "aggregate", "per_sweep"}
+    assert entry["aggregate"] == full["aggregate"]
+    assert entry["per_sweep"] == full["per_sweep"]
+    assert not ring_occupancy_torch.parse_args([]).skip_inflation

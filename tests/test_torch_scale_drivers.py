@@ -187,3 +187,138 @@ def test_oom_point_is_recorded():
     assert row["oom"] and row["qps"] == 0.0
     assert row["asked_bytes"] == 8.5 * 2**30
     assert np.isfinite(row["asked_bytes"])
+
+
+# --- --db on the knee drivers ---------------------------------------------
+
+def test_db_artifact_names():
+    """A ``--db`` run writes its own file, never the default graph's."""
+    assert hub_knee_torch.parse_args(["--db", "data/blogcatalog/"]).out \
+        == "results/hub_knee_blogcatalog_h100.json"
+    assert hub_knee_torch.parse_args(["--db", "synth:blogcatalog"]).out == \
+        "results/hub_knee_blogcatalog_h100.json"
+    assert scale_1m_knee_torch.parse_args(["--db", "synth:8192x4@3"]).out \
+        == "results/scale_1m_knee_8192x4_3_h100.json"
+    assert hub_knee_torch.parse_args(["--db", "x", "--out", "a.json"]).out \
+        == "a.json"
+    assert hub_knee_torch.parse_args([]).db is None
+
+
+def test_db_bench_graph_is_the_default_graph():
+    """``--db synth:65536x16@42`` loads the bench graph the default
+    ``--n/--deg/--seed`` builds: n_pad 65,664, m 1,038,206, sparse, the
+    same edges."""
+    from ppr_tpu_torch.utils.drivers import graph_record
+
+    cpu = torch.device("cpu")
+    ds, db = hub_knee_torch.load(hub_knee_torch.parse_args(
+        ["--db", "synth:65536x16@42", "--device", "cpu"]), cpu)
+    ref, ref_db = hub_knee_torch.load(hub_knee_torch.parse_args(
+        ["--device", "cpu"]), cpu)
+    assert (db, ref_db) == ("synth:65536x16@42", "synth:65536x16@42")
+    assert graph_record(ds.graph) == graph_record(ref.graph) == {
+        "n": 65536, "m": 1_038_206, "n_pad": 65_664, "operator": "sparse"}
+    assert torch.equal(ds.graph.edge_src_bydst, ref.graph.edge_src_bydst)
+    assert torch.equal(ds.graph.edge_dst_bydst, ref.graph.edge_dst_bydst)
+
+
+def test_db_records_a_dense_operator():
+    """``load_dataset("synth:NxD@S")`` keeps the default dense threshold:
+    a 2048-node graph carries the dense matrix, the same ``--n`` graph
+    does not, and the artifact says which ran."""
+    from ppr_tpu_torch.utils.drivers import graph_record
+
+    cpu = torch.device("cpu")
+    ds, _ = hub_knee_torch.load(hub_knee_torch.parse_args(
+        ["--db", "synth:2048x8@42"]), cpu)
+    ref, _ = hub_knee_torch.load(hub_knee_torch.parse_args(
+        ["--n", "2048", "--deg", "8"]), cpu)
+    assert graph_record(ds.graph)["operator"] == "dense"
+    assert graph_record(ref.graph)["operator"] == "sparse"
+    assert graph_record(ds.graph)["m"] == graph_record(ref.graph)["m"]
+
+
+#: a point's fields that do not depend on the clock
+DETERMINISTIC = ("batch", "hubs", "sweeps", "tail_edges", "hub_edge_cover",
+                 "rule")
+
+
+@pytest.mark.parametrize("mod,extra", [
+    (hub_knee_torch, ["--host-split", "none"]),
+    (scale_1m_knee_torch, [])])
+def test_db_gives_the_same_rows(mod, extra, tmp_path, results_before):
+    """``--db synth:8192x4@5`` and ``--n 8192 --deg 4 --seed 5``: the same
+    sparse operator, the same points."""
+    common = ["--device", "cpu", "--batches", "8", "--hubs", "128",
+              "--reps", "1", *extra]
+    recs = []
+    for i, graph in enumerate((["--db", "synth:8192x4@5"],
+                               ["--n", "8192", "--deg", "4", "--seed", "5"])):
+        out = tmp_path / f"{i}.json"
+        assert mod.main([*graph, *common, "--out", str(out)]) == 0
+        recs.append(json.loads(out.read_text()))
+    by_db, by_n = recs
+    assert by_db["db"] == "synth:8192x4@5"
+    assert by_db["graph"] == by_n["graph"]
+    assert by_db["graph"]["operator"] == "sparse"
+    assert [{k: r[k] for k in DETERMINISTIC} for r in by_db["rows"]] == \
+        [{k: r[k] for k in DETERMINISTIC} for r in by_n["rows"]]
+    assert_results_untouched(results_before)
+
+
+# --- --quick and --phase on the 1M driver --------------------------------
+
+def test_scale_1m_quick_writes_nothing(tmp_path, results_before):
+    """``--quick`` is the JAX script's small run, and writes nothing."""
+    args = scale_1m_torch.parse_args(["--quick"])
+    assert (args.n, args.deg, args.batch, args.wg_batch, args.walkers) == \
+        (1 << 14, 8, 16, 4, 1 << 16)
+    out = tmp_path / "q.json"
+    assert scale_1m_torch.main(["--quick", "--device", "cpu", "--phase",
+                                "walks", "--out", str(out)]) == 0
+    assert not out.exists()
+    assert_results_untouched(results_before)
+
+
+SMALL_1M = ["--device", "cpu", "--n", "2048", "--batch", "16",
+            "--wg-batch", "4", "--walkers", "2048"]
+
+
+def small_graph_m():
+    args = scale_1m_torch.parse_args(SMALL_1M)
+    return scale_1m_torch.build(args, torch.device("cpu")).graph.m
+
+
+@pytest.mark.parametrize("same_graph", [True, False])
+def test_scale_1m_phase_merges(tmp_path, same_graph, results_before):
+    """``--phase walks`` adds its keys to an artifact of the same n and m,
+    keeping the other phases'; of another graph, it writes its own."""
+    m = small_graph_m()
+    out = tmp_path / "s.json"
+    prior = {"n": 2048, "m": m if same_graph else m + 1,
+             "fora_topk_qps": 123.0, "recall_at_10": 1.0}
+    out.write_text(json.dumps(prior))
+    assert scale_1m_torch.main([*SMALL_1M, "--phase", "walks",
+                                "--out", str(out)]) == 0
+    rec = json.loads(out.read_text())
+    assert rec["m"] == m and abs(rec["walks_mass"] - 1.0) <= 1e-6
+    assert ("fora_topk_qps" in rec) == same_graph
+    if same_graph:
+        assert rec["fora_topk_qps"] == 123.0
+    assert "mass_rows" not in rec and "acc_sources" not in rec
+    assert_results_untouched(results_before)
+
+
+def test_scale_1m_phases_run_alone():
+    """Each phase writes its own keys only; the whole-graph phase builds its
+    own hub split and checks the oracle rows."""
+    keys = {}
+    for phase in ("topk", "wg", "walks"):
+        args = scale_1m_torch.parse_args([*SMALL_1M, "--phase", phase])
+        keys[phase] = set(scale_1m_torch.run(args))
+    assert "fora_topk_qps" in keys["topk"] and "walks_mass" not in keys["topk"]
+    assert {"fora_whole_graph_qps", "wg_precision_at_10"} <= keys["wg"]
+    assert "fora_topk_qps" not in keys["wg"]
+    assert "walks_per_sec" in keys["walks"]
+    assert not keys["walks"] & {"fora_topk_qps", "fora_whole_graph_qps",
+                                "acc_sources"}
