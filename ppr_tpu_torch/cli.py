@@ -89,7 +89,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "explicit note row once exceeded")
     p.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler chrome trace of the batch "
-                        "test here")
+                        "test here, with the program's spans and counters")
     p.add_argument("--mesh", default=None, metavar="DxG",
                    help="run every algorithm (incl. preprocessing sweeps) "
                         "on a (data=D, graph=G) device mesh, e.g. --mesh "

@@ -75,6 +75,7 @@ from ..ops.push import (apply_dangling_source_shortcircuit, forward_push_init,
                         forward_push_sweeps)
 from ..ops.spmv import push_out_chunked_t, push_out_t
 from ..ops.walk import expand_walkers, weighted_walk_counts
+from ..utils import timer
 from .base import PPRAlgorithm, PreprocessingMixin
 
 #: total annealed-sweep budget of a top-k query, shared by the batch loop
@@ -245,7 +246,14 @@ def annealed_topk_propagate(
     the sweeps where ``max_row sum(r) <= eps'*delta`` (settled); a settled
     sweep that does not stop anneals delta by /4, down to ``min_delta``,
     and a settled sweep at ``min_delta`` stops. ``early_exit`` also stops
-    once every row's certificate holds (:func:`_set_stable`)."""
+    once every row's certificate holds (:func:`_set_stable`).
+
+    While a ``torch.profiler`` session runs it records each read of
+    ``finished`` as the span ``loop.check``, and counts ``loop.sweeps``
+    (the sweeps launched, the frozen ones before the stopping read
+    included) and ``loop.edge_cols`` (those sweeps times the tail's edges,
+    or the graph's without a hub split, times the columns): the work the
+    sparse tail's kernel did."""
     dev = p.device
     f32 = torch.float32
     alpha_f, keep, eps_f, thresh_scale = _loop_constants(alpha, eps)
@@ -275,8 +283,15 @@ def annealed_topk_propagate(
         delta = torch.where(settled & ~finished,
                             torch.clamp_min(delta / 4.0, min_delta), delta)
         it = it + live.to(torch.int32)
-        if (sweep + 1) % CHECK_EVERY == 0 and bool(finished):
-            break
+        if (sweep + 1) % CHECK_EVERY == 0:
+            with timer.span("loop.check"):
+                stop = bool(finished)
+            if stop:
+                break
+    if timer.recording():
+        tail = hs.m_tail if hs is not None else g.m
+        timer.count("loop.sweeps", sweep + 1)
+        timer.count("loop.edge_cols", (sweep + 1) * tail * p_t.shape[1])
     return p_t.T, r_t.T, it
 
 
@@ -664,6 +679,8 @@ class ForaTopk(_ForaCostModel, PPRAlgorithm):
         self.last_iters: int | None = None
         #: the walks each round of the last push+walks run launched
         self.last_round_walks: list[int] = []
+        #: the path the last batch call took (:meth:`path_cost`)
+        self.last_path: str | None = None
         self._init_cost_constants()
 
     def path_cost(self, eps: float, batch: int) -> tuple[float, float, str]:
@@ -693,14 +710,17 @@ class ForaTopk(_ForaCostModel, PPRAlgorithm):
         g = self.graph
         if len(sources) == 0:
             return np.zeros((0, g.n_pad), np.float32)
-        sources, b = _pad_sources(sources)
-        result, sources_t, src_onehot = self._compute_topk_device(
-            sources, k, param
-        )
-        result, _ = apply_dangling_source_shortcircuit(
-            g, sources_t, result, torch.zeros_like(result), src_onehot
-        )
-        return result.cpu().numpy()[:b]
+        with timer.span("loop.topk") as sp:
+            sources, b = _pad_sources(sources)
+            result, sources_t, src_onehot = self._compute_topk_device(
+                sources, k, param
+            )
+            result, _ = apply_dangling_source_shortcircuit(
+                g, sources_t, result, torch.zeros_like(result), src_onehot
+            )
+            out = result.cpu().numpy()[:b]
+            self._note_loop(sp, len(sources))
+        return out
 
     def compute_topk_ids_batch(self, sources: np.ndarray, k: int, param, *,
                                kcap: int | None = None):
@@ -711,14 +731,30 @@ class ForaTopk(_ForaCostModel, PPRAlgorithm):
         g = self.graph
         if len(sources) == 0:
             return (np.zeros((0, 0), np.float32), np.zeros((0, 0), np.int64))
-        sources, b = _pad_sources(sources)
-        result, sources_t, src_onehot = self._compute_topk_device(
-            sources, k, param
-        )
-        kcap = topk_kcap(k, g.n_pad, kcap)
-        vals, ids = _device_topk_epilogue(g, sources_t, result, src_onehot,
-                                          kcap)
-        return vals.cpu().numpy()[:b], ids.cpu().numpy()[:b]
+        with timer.span("loop.topk") as sp:
+            sources, b = _pad_sources(sources)
+            result, sources_t, src_onehot = self._compute_topk_device(
+                sources, k, param
+            )
+            kcap = topk_kcap(k, g.n_pad, kcap)
+            vals, ids = _device_topk_epilogue(g, sources_t, result,
+                                              src_onehot, kcap)
+            out = vals.cpu().numpy()[:b], ids.cpu().numpy()[:b]
+            self._note_loop(sp, len(sources))
+        return out
+
+    def _note_loop(self, sp, columns: int) -> None:
+        """The ``loop.topk`` span's attributes: the ``path`` the last call
+        took, its ``sweeps`` (the annealed loop's count) or ``rounds``
+        (push+walks), its ``columns`` and ``tail_edges``, the edges the
+        sparse tail's kernel sweeps (the graph's without a hub split)."""
+        if sp is timer.NO_SPAN:
+            return
+        hs = self.hub_split
+        sp.set(path=self.last_path, columns=columns,
+               tail_edges=hs.m_tail if hs is not None else self.graph.m,
+               **{"sweeps" if self.last_path == "annealed" else "rounds":
+                  self.last_iters})
 
     def compute_topk_ids_cohorts(self, sources: np.ndarray, k: int, param,
                                  *, kcap: int | None = None):
@@ -823,7 +859,8 @@ class ForaTopk(_ForaCostModel, PPRAlgorithm):
                                     device=g.device)
         p, r, src_onehot = forward_push_init(g, sources_t)
         p = torch.zeros_like(p)
-        if self._skip_push(eps, b):
+        self.last_path = self.path_cost(eps, b)[2]
+        if self.last_path == "annealed":
             p, r, iters = annealed_topk_propagate(
                 g, p, r, src_onehot, eps, self.delta0, self.min_delta, k,
                 self.alpha, hs=self.hub_split,

@@ -27,6 +27,12 @@ ring); :meth:`PPRService.whole_graph` stays on the dataset's device. A
 mesh across processes (``parallel/distributed.py::global_mesh``) is
 taken too: every rank builds the service with the same arguments, makes
 the same calls, and gets the same hits.
+
+While a ``torch.profiler`` session runs, :meth:`PPRService.top_k` records
+the span ``service.top_k`` (``rows``), and in it the engine's
+``loop.topk``, ``service.hits`` (the hit lists from the device's window)
+and ``service.recompute`` (``rows``: the dense recompute of rows whose
+ties overflow the window); ``utils/timer.py`` keeps them.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from .models import AlgoConf, AlgoType
 from .ops.hub_split import build_hub_split
 from .ops.topk import topk_ids_with_ties
 from .utils import calibrate as calibrate_mod
+from .utils import timer
 
 
 @dataclasses.dataclass
@@ -172,11 +179,12 @@ class PPRService:
         sources = np.asarray(sources)
         eps = eps or self.eps
         algo = self._topk_algo
-        if hasattr(algo, "compute_topk_ids_batch"):
-            vals, ids = algo.compute_topk_ids_batch(sources, k, eps)
-            return self._hits_from_ids(vals, ids, k, sources, eps)
-        scores = algo.compute_topk_batch(sources, k, eps)
-        return [self._hits_dense(row, k) for row in np.asarray(scores)]
+        with timer.span("service.top_k", rows=len(sources)):
+            if hasattr(algo, "compute_topk_ids_batch"):
+                vals, ids = algo.compute_topk_ids_batch(sources, k, eps)
+                return self._hits_from_ids(vals, ids, k, sources, eps)
+            scores = algo.compute_topk_batch(sources, k, eps)
+            return [self._hits_dense(row, k) for row in np.asarray(scores)]
 
     def _hits_dense(self, row: np.ndarray, k: int) -> list[TopKHit]:
         return [TopKHit(int(v), float(row[v]), self.dataset.names[int(v)])
@@ -189,25 +197,27 @@ class PPRService:
         selection window are recomputed densely."""
         out = []
         dense_rows = []
-        for b, (vrow, irow) in enumerate(zip(vals, ids)):
-            sup = vrow > 0.0
-            v, i = vrow[sup], irow[sup]
-            if v.size > k:
-                keep = v >= v[k - 1]
-                v, i = v[keep], i[keep]
-            if v.size == vrow.size and vrow.size and vrow[-1] > 0.0:
-                dense_rows.append(b)
-                out.append(None)
-            else:
-                out.append([
-                    TopKHit(int(n), float(s), self.dataset.names[int(n)])
-                    for s, n in zip(v, i)
-                ])
+        with timer.span("service.hits"):
+            for b, (vrow, irow) in enumerate(zip(vals, ids)):
+                sup = vrow > 0.0
+                v, i = vrow[sup], irow[sup]
+                if v.size > k:
+                    keep = v >= v[k - 1]
+                    v, i = v[keep], i[keep]
+                if v.size == vrow.size and vrow.size and vrow[-1] > 0.0:
+                    dense_rows.append(b)
+                    out.append(None)
+                else:
+                    out.append([
+                        TopKHit(int(n), float(s), self.dataset.names[int(n)])
+                        for s, n in zip(v, i)
+                    ])
         if dense_rows:
-            scores = self._topk_algo.compute_topk_batch(
-                sources[dense_rows], k, eps)
-            for b, row in zip(dense_rows, np.asarray(scores)):
-                out[b] = self._hits_dense(row, k)
+            with timer.span("service.recompute", rows=len(dense_rows)):
+                scores = self._topk_algo.compute_topk_batch(
+                    sources[dense_rows], k, eps)
+                for b, row in zip(dense_rows, np.asarray(scores)):
+                    out[b] = self._hits_dense(row, k)
         return out
 
     @property

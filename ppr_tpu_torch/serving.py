@@ -76,7 +76,16 @@ with the most rows a second, whatever its single-dispatch latency.
 
 The policy (``_slo_update``, ``_choose_width``, ``_explore_width``),
 ``prewarm``, the dispatcher and :func:`serve_loop` are the JAX package's
-code line for line; the tests feed both the same calls.
+code line for line, but for the spans below; the tests feed both the
+same calls.
+
+While a ``torch.profiler`` session runs, the dispatcher records spans
+(``utils/timer.py``): ``serving.take`` (waiting for requests and forming
+a batch), ``serving.dispatch`` (one group's call, ``rows`` and ``width``;
+the service's spans inside it) and, in it, ``serving.resolve`` (the width
+EWMA, the latency samples, the futures); and the counter
+``serving.queue_wait``, each request's ms from submit to the start of its
+dispatch.
 """
 
 from __future__ import annotations
@@ -88,6 +97,8 @@ import time
 from collections import defaultdict
 from concurrent.futures import Future
 from dataclasses import dataclass, field
+
+from .utils import timer
 
 
 @dataclass
@@ -571,7 +582,8 @@ class PPRBatchServer:
 
     def _dispatch_loop(self):
         while True:
-            taken = self._take_batch()
+            with timer.span("serving.take"):
+                taken = self._take_batch()
             if taken is None:
                 return
             groups, n_rest = taken
@@ -590,52 +602,61 @@ class PPRBatchServer:
                 self.stats.batch_sizes.append(b)
                 lat = self.stats.latencies_ms
                 stream = getattr(self._svc, "supports_stream", False)
-                t0 = time.perf_counter()
-                try:
-                    if stream:
-                        # cohort streaming: a row's future resolves the
-                        # moment ITS cohort retires — fast rows stop
-                        # paying for the slowest row's sweep train
-                        resolved = [False] * b
+                with timer.span("serving.dispatch", rows=b, width=width):
+                    t0 = time.perf_counter()
+                    if timer.recording():
+                        timer.count("serving.queue_wait",
+                                    sum(t0 - t for t in submits) * 1e3, b)
+                    try:
+                        if stream:
+                            # cohort streaming: a row's future resolves the
+                            # moment ITS cohort retires — fast rows stop
+                            # paying for the slowest row's sweep train
+                            resolved = [False] * b
 
-                        def emit(idxs, hits_rows, _r=resolved, _f=futs,
-                                 _s=submits):
-                            now = time.perf_counter()
-                            for i, row in zip(idxs, hits_rows):
-                                i = int(i)
-                                if i < len(_f) and not _r[i]:
-                                    _r[i] = True
-                                    lat.append((now - _s[i]) * 1e3)
-                                    _f[i].set_result(row)
+                            def emit(idxs, hits_rows, _r=resolved, _f=futs,
+                                     _s=submits):
+                                now = time.perf_counter()
+                                for i, row in zip(idxs, hits_rows):
+                                    i = int(i)
+                                    if i < len(_f) and not _r[i]:
+                                        _r[i] = True
+                                        lat.append((now - _s[i]) * 1e3)
+                                        _f[i].set_result(row)
 
-                        self._svc.top_k_stream(sources, k=k, eps=eps,
-                                               emit=emit)
-                        for i, done_i in enumerate(resolved):
-                            if not done_i:
-                                futs[i].set_exception(RuntimeError(
-                                    "cohort stream ended without this row"
-                                ))
-                    else:
-                        rows = self._svc.top_k(sources, k=k, eps=eps)
-                except Exception as e:  # noqa: BLE001 - fan the error out
-                    for f in futs:
-                        if not f.done():
-                            f.set_exception(e)
-                    continue
-                done = time.perf_counter()
-                if self.slo_ms is not None:
-                    with self._lock:
-                        backlog = n_rest > 0 or bool(self._queue)
-                    self._slo_update(width, (done - t0) * 1e3, backlog)
-                else:
-                    # keep the per-width EWMAs warm for _choose_width
-                    self._note_service_time(width, (done - t0) * 1e3)
-                if not stream:
-                    lat.extend((done - t) * 1e3 for t in submits)
-                    for f, row in zip(futs, rows):
-                        f.set_result(row)
-                if len(lat) > self.stats.max_latency_samples:
-                    del lat[: len(lat) - self.stats.max_latency_samples]
+                            self._svc.top_k_stream(sources, k=k, eps=eps,
+                                                   emit=emit)
+                            for i, done_i in enumerate(resolved):
+                                if not done_i:
+                                    futs[i].set_exception(RuntimeError(
+                                        "cohort stream ended without this "
+                                        "row"
+                                    ))
+                        else:
+                            rows = self._svc.top_k(sources, k=k, eps=eps)
+                    except Exception as e:  # noqa: BLE001 - fan the error out
+                        for f in futs:
+                            if not f.done():
+                                f.set_exception(e)
+                        continue
+                    done = time.perf_counter()
+                    with timer.span("serving.resolve"):
+                        if self.slo_ms is not None:
+                            with self._lock:
+                                backlog = n_rest > 0 or bool(self._queue)
+                            self._slo_update(width, (done - t0) * 1e3,
+                                             backlog)
+                        else:
+                            # keep the per-width EWMAs warm for _choose_width
+                            self._note_service_time(width,
+                                                    (done - t0) * 1e3)
+                        if not stream:
+                            lat.extend((done - t) * 1e3 for t in submits)
+                            for f, row in zip(futs, rows):
+                                f.set_result(row)
+                        if len(lat) > self.stats.max_latency_samples:
+                            del lat[: len(lat)
+                                    - self.stats.max_latency_samples]
 
 
 # ---------------------------------------------------------------- daemon

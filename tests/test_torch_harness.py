@@ -19,6 +19,7 @@ import re
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from ppr_tpu import cli as jcli
 from ppr_tpu import harness as jh
@@ -34,7 +35,7 @@ from ppr_tpu_torch.models import fora as tfora
 from ppr_tpu_torch.models.config import AlgoConf, AlgoType
 from ppr_tpu_torch.parallel import distributed
 from ppr_tpu_torch.parallel.mesh import make_mesh
-from ppr_tpu_torch.utils.timer import PhaseTimer
+from ppr_tpu_torch.utils.timer import Recorder
 
 Q, K = 8, 5
 
@@ -465,12 +466,16 @@ def test_cli_device_cpu_rows_match_jax_cli(tmp_path, monkeypatch, algos,
 
 
 def test_phase_timer():
-    timer = PhaseTimer()
-    for _ in range(3):
-        with timer.phase("sum", block_on=torch.ones(4)):
-            torch.ones(1000).sum()
-    assert timer.counts["sum"] == 3 and timer.ms("sum") > 0
-    assert timer.report().startswith("sum: ")
+    """The recorder's spans time a phase (the former ``PhaseTimer``):
+    under ``torch.profiler`` each call is one span with its wall time."""
+    timer = Recorder()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(3):
+            with timer.span("sum"):
+                torch.ones(1000).sum()
+    spans = timer.spans()
+    assert [s.name for s in spans] == ["sum"] * 3
+    assert all(s.end_ns > s.start_ns > 0 for s in spans)
 
 
 @pytest.mark.parametrize("kind", ["dense", "sparse"])

@@ -268,6 +268,34 @@ def _definitions(module) -> dict[str, ast.AST]:
     return out
 
 
+def _is_timer_call(node, name: str) -> bool:
+    return (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+            and isinstance(node.func.value, ast.Name)
+            and node.func.value.id == "timer" and node.func.attr == name)
+
+
+class _NoSpans(ast.NodeTransformer):
+    """The port's instrumentation taken out: a ``with`` whose every item
+    is a ``timer.span(...)`` becomes its body; an ``if timer.recording():``
+    with no ``else`` whose every statement is a ``timer.count(...)`` call
+    goes. Any other statement stays."""
+
+    def visit_With(self, node):
+        self.generic_visit(node)
+        if all(_is_timer_call(i.context_expr, "span") for i in node.items):
+            return node.body
+        return node
+
+    def visit_If(self, node):
+        self.generic_visit(node)
+        if (_is_timer_call(node.test, "recording") and not node.orelse
+                and all(isinstance(st, ast.Expr)
+                        and _is_timer_call(st.value, "count")
+                        for st in node.body)):
+            return None
+        return node
+
+
 @pytest.mark.parametrize("name", [
     "ServerStats", "_pow2_bucket", "_ladder", "PPRBatchServer",
     "PPRBatchServer.prewarm", "PPRBatchServer._choose_width",
@@ -277,9 +305,46 @@ def _definitions(module) -> dict[str, ast.AST]:
 ])
 def test_server_code_is_the_jax_code(name):
     """The policy, prewarm, dispatcher and ``serve_loop`` are the JAX
-    package's line for line: equal syntax trees without docstrings."""
+    package's line for line: equal syntax trees without docstrings, and
+    without the port's spans and counters (``utils/timer.py``)."""
     jdefs, tdefs = _definitions(jserving), _definitions(tserving)
-    assert ast.dump(tdefs[name]) == ast.dump(jdefs[name])
+    assert ast.dump(_NoSpans().visit(tdefs[name])) == ast.dump(jdefs[name])
+
+
+def test_the_server_code_test_sees_through_spans_only():
+    """The comparison above strips the instrumentation and nothing else:
+    a span's body stays, and any other statement still counts."""
+    tree = ast.parse(
+        "def f():\n"
+        "    with timer.span('a', rows=1):\n"
+        "        x = 1\n"
+        "    if timer.recording():\n"
+        "        timer.count('c', 1)\n"
+        "    with lock:\n"
+        "        y = 2\n")
+    want = ast.parse("def f():\n    x = 1\n    with lock:\n        y = 2\n")
+    assert ast.dump(_NoSpans().visit(tree)) == ast.dump(want)
+    other = ast.parse("def f():\n    with timer.span('a'):\n"
+                      "        x = 2\n")
+    assert ast.dump(_NoSpans().visit(other)) != ast.dump(want)
+
+
+@pytest.mark.parametrize("body", [
+    "        self._queue.clear()\n",
+    "        timer.count('c', 1)\n        self.stats.dispatches += 1\n",
+    "        n = 1\n",
+])
+def test_the_server_code_test_keeps_other_code_under_recording(body):
+    """An ``if timer.recording():`` block that holds anything but
+    ``timer.count`` calls stays in the comparison, so code hidden there
+    still makes the port differ from the JAX package."""
+    tree = ast.parse("def f():\n    if timer.recording():\n" + body
+                     + "    x = 1\n")
+    want = ast.parse("def f():\n    x = 1\n")
+    assert ast.dump(_NoSpans().visit(tree)) != ast.dump(want)
+    mixed = ast.parse("def f():\n    with timer.span('a'), lock:\n"
+                      "        x = 1\n")
+    assert ast.dump(_NoSpans().visit(mixed)) != ast.dump(want)
 
 
 def test_pow2_bucket_and_ladder_match_jax():
