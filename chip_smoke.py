@@ -4111,6 +4111,97 @@ def serving_calibrate_path(ds) -> tuple[dict, dict]:
     return launches, {"constants": c, "rungs": cm["rungs"], "row": lrow}
 
 
+def sweep_pass_phase(dev, n_rows: int = 80640) -> dict:
+    """``[loop:sweep]``: the annealed loop's fused passes
+    (``ops/sweep_pass.py``) against their plain versions at the flickr
+    cell's state (80,640 rows; B 2,048 and 256; a bf16 hub operand): each
+    kernel's outputs held to the plain version's bits (the column sums to
+    f32 reassociation, the counts exactly), then the median of 10
+    CUDA-event-timed calls of each beside the plain sequence's and its
+    byte bound (4.5 passes over the state for the pre pass, 1 for the
+    post pass, at 3.35 TB/s); the launch counts last."""
+    import torch
+
+    from ppr_tpu_torch.models.fora import _loop_constants
+    from ppr_tpu_torch.ops import sweep_pass
+    from ppr_tpu_torch.ops.spmv import _safe_inv_deg
+
+    alpha_f, keep, eps_f, ts = _loop_constants(ALPHA, EPS / 2)
+    rng = np.random.default_rng(0)
+    before = (sweep_pass.pre_launches, sweep_pass.post_launches,
+              sweep_pass.finalize_launches)
+    out = {}
+    for b in (2048, 256):
+        def draw():
+            x = rng.random((n_rows, b), dtype=np.float32) * (2.0 / n_rows)
+            return torch.as_tensor(x, device=dev)
+
+        p, r, pushed = draw(), draw(), draw()
+        inv = _safe_inv_deg(torch.as_tensor(
+            rng.integers(0, 300, n_rows).astype(np.int32), device=dev))
+        src = torch.as_tensor(rng.integers(0, n_rows, b).astype(np.int32),
+                              device=dev)
+        dang = (r[:64] * keep).sum(dim=0)
+        state = sweep_pass.LoopState.start(1.0 / n_rows, dev)
+        kw = dict(alpha=alpha_f, keep=keep, thresh_scale=ts, bf16=True)
+
+        want = sweep_pass.sweep_pre_ref(p, r, state, inv, **kw)
+        got = sweep_pass.sweep_pre(p.clone(), r, state, inv, **kw)
+        check(all(torch.equal(x, y) for x, y in zip(got[:3], want[:3]))
+              and torch.equal(got[3].reshape(-1, b).sum(dim=0).long(),
+                              want[3].long()),
+              f"[loop:sweep] B {b}: the pre kernel differs from its plain "
+              "version")
+        want_r, want_s = sweep_pass.sweep_post_ref(pushed.clone(), r, src,
+                                                   dang, state)
+        got_r, got_s = sweep_pass.sweep_post(pushed.clone(), r, src, dang,
+                                             state)
+        _, again = sweep_pass.sweep_post(pushed.clone(), r, src, dang, state)
+        sum_err = float(((got_s.reshape(-1, b).sum(dim=0) - want_s).abs()
+                         / want_s.abs().clamp_min(1e-30)).max())
+        check(torch.equal(got_r, want_r) and torch.equal(got_s, again)
+              and sum_err < 1e-5,
+              f"[loop:sweep] B {b}: the post kernel differs from its plain "
+              f"version (sums {sum_err:.2e})")
+        counts, sums = got[3], got_s
+
+        def fin():
+            sweep_pass.sweep_finalize(state, counts, sums, k=K, eps=eps_f,
+                                      min_delta=1.0 / n_rows)
+
+        pass_bytes = n_rows * b * 4.0
+        row = {
+            "pre_ms": cuda_ms(lambda: sweep_pass.sweep_pre(p, r, state, inv,
+                                                           **kw)),
+            "pre_plain_ms": cuda_ms(lambda: sweep_pass.sweep_pre_ref(
+                p, r, state, inv, **kw)),
+            "pre_bound_ms": 4.5 * pass_bytes / 3.35e12 * 1e3,
+            "post_ms": cuda_ms(lambda: sweep_pass.sweep_post(
+                pushed, r, src, dang, state)),
+            "post_plain_ms": cuda_ms(lambda: sweep_pass.sweep_post_ref(
+                pushed, r, src, dang, state)),
+            "post_bound_ms": pass_bytes / 3.35e12 * 1e3,
+            "finalize_ms": cuda_ms(fin),
+            "sum_rel_err": sum_err,
+        }
+        out[b] = row
+        print(f"[loop:sweep] B {b}: equal bit for bit (column sums within "
+              f"{sum_err:.1e}, the same bits twice); pre "
+              f"{row['pre_ms']:.4f} ms (plain {row['pre_plain_ms']:.4f}, "
+              f"bound {row['pre_bound_ms']:.4f}, 4.5 passes), post "
+              f"{row['post_ms']:.4f} ms (plain {row['post_plain_ms']:.4f}, "
+              f"bound {row['post_bound_ms']:.4f}, 1 pass), finalize "
+              f"{row['finalize_ms']:.4f} ms (median of 10, one call "
+              "between events)")
+    launches = (sweep_pass.pre_launches - before[0],
+                sweep_pass.post_launches - before[1],
+                sweep_pass.finalize_launches - before[2])
+    print(f"[loop:sweep] launches: pre {launches[0]}, post {launches[1]}, "
+          f"finalize {launches[2]}")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4141,11 +4232,12 @@ def main() -> int:
     import row_gather_ablation
 
     ablation_procs = row_gather_ablation.start_builds()
-    sources_cu = ("dense_power", "probe", "row_gather")
+    sources_cu = ("dense_power", "probe", "row_gather", "sweep_pass")
     with ThreadPoolExecutor(len(sources_cu)) as pool:
         list(pool.map(cuda_build.load_library, sources_cu))
-    print(f"[build] dense_power.cu (K1, K2), probe.cu (K0) and "
-          f"row_gather.cu (K3, P1-P4): {time.perf_counter() - t0:.2f} s")
+    print(f"[build] dense_power.cu (K1, K2), probe.cu (K0), row_gather.cu "
+          f"(K3, P1-P4) and sweep_pass.cu (the annealed loop's passes): "
+          f"{time.perf_counter() - t0:.2f} s")
     for name in sources_cu:
         secs, log = cuda_build.BUILD_INFO[name]
         print(f"[build] {name}.cu: nvcc {secs:.2f} s")
@@ -4207,6 +4299,7 @@ def main() -> int:
     grqc = load_dataset("synth:grqc", device=dev).graph
     k3 = k3_phase(dev, ds.graph, hs, grqc)
     rg = gather_probes(dev, k3)
+    sweep = sweep_pass_phase(dev)
     table = torch.rand((ds.graph.n_pad, 2048), device=dev)
     k3["ablation"] = row_gather_ablation.ablation(
         ablation_libs, "bench tail", table, hs.tail_src, hs.tail_ptr,
@@ -4479,6 +4572,14 @@ def main() -> int:
         "library_host_us": rg["library_host_us"],
         "library_device_ms": rg["library_device_ms"],
         "shapes": rg["shapes"],
+    }, {
+        "name": "sweep_pass",
+        "route": "cuda",
+        "source": "ppr_tpu_torch/csrc/sweep_pass.cu",
+        "replaces": "none: the annealed loop's passes, fused by XLA on the "
+                    "TPU",
+        "launches": sweep["launches"],
+        "shapes": {b: sweep[b] for b in (2048, 256)},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4489,7 +4590,35 @@ def main() -> int:
     return 0
 
 
+def sweep_pass_main() -> int:
+    """``python3 chip_smoke.py --sweep-pass``: the build of
+    ``sweep_pass.cu`` and ``[loop:sweep]`` alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the smoke runs only on a card",
+              file=sys.stderr)
+        return 1
+    from ppr_tpu_torch.ops import cuda_build
+
+    print(f"[card] {card_line()} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda}")
+    cuda_build.load_library("sweep_pass")
+    secs, log = cuda_build.BUILD_INFO["sweep_pass"]
+    print(f"[build] sweep_pass.cu: nvcc {secs:.2f} s")
+    for line in log.splitlines():
+        entry = kernel_entry(line)
+        if "entry function" in line and entry:
+            print(f"[build] ptxas: {entry}")
+        elif "registers" in line or "spill" in line:
+            print(f"[build] ptxas: {line.strip()}")
+    sweep_pass_phase(torch.device("cuda"))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-rank"]:
         sys.exit(dist_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--sweep-pass"]:
+        sys.exit(sweep_pass_main())
     sys.exit(main())

@@ -36,8 +36,9 @@ changes nothing, and the host reads ``finished`` once every
 ``CHECK_EVERY`` sweeps, so the loop does not wait on the card every sweep
 and still stops on exactly the sweep of the JAX package's
 ``lax.while_loop``. Unlike that loop, the port evaluates the stopping
-count on every sweep, settled or not: skipping it would need the host to
-read ``settled`` each sweep.
+count on every sweep, settled or not: in the annealed loop it is a
+compare in the pass that updates ``p`` (:mod:`~..ops.sweep_pass`), on
+values that pass holds anyway.
 
 ``early_exit=True`` adds the JAX package's set-stability certificate,
 tested every ``EARLY_CHECK_EVERY`` sweeps: once ``kth(p) > (k+1)th(p) +
@@ -70,10 +71,13 @@ import torch
 
 from ..device import synchronize
 from ..graph.csr import Graph
-from ..ops.hub_split import HubSplit, build_hub_split, push_out_hybrid_t
+from ..ops import sweep_pass
+from ..ops.hub_split import (HubSplit, build_hub_split, push_out_hybrid_t,
+                             push_scaled_hybrid_t)
 from ..ops.push import (apply_dangling_source_shortcircuit, forward_push_init,
                         forward_push_sweeps)
-from ..ops.spmv import push_out_chunked_t, push_out_t
+from ..ops.spmv import (_safe_inv_deg, gather_segment_sum,
+                        push_out_chunked_t, push_out_t)
 from ..ops.walk import expand_walkers, weighted_walk_counts
 from ..utils import timer
 from .base import PPRAlgorithm, PreprocessingMixin
@@ -223,6 +227,24 @@ def residual_propagate(
     return p_t.T, r_t.T, int(it)
 
 
+def _scaled_push(g: Graph, hs: HubSplit | None, num_chunks: int):
+    """The annealed loop's push of ``r * keep``, split at its scaling:
+    ``(inv_deg, push)``, where ``push(scaled, rhs)`` pushes ``scaled = (r *
+    keep) * inv_deg[:, None]``, or ``r * keep`` itself where ``inv_deg`` is
+    None (a weighted graph's coefficients, the dense operator), and
+    ``rhs`` is its bf16 copy for a bf16 hub product. The operators are
+    :func:`_push_residue`'s."""
+    if hs is not None:
+        return _safe_inv_deg(g.out_deg), lambda s, rhs: push_scaled_hybrid_t(
+            hs, s, rhs, num_chunks=num_chunks)
+    if g.weighted or (num_chunks == 1 and g.has_dense):
+        return None, lambda s, rhs: (
+            push_out_chunked_t(g, s, num_chunks=num_chunks) if num_chunks > 1
+            else push_out_t(g, s))
+    return _safe_inv_deg(g.out_deg), lambda s, rhs: gather_segment_sum(
+        s, g.edge_src_bydst, g.bydst_ptr, num_chunks)
+
+
 def annealed_topk_propagate(
     g: Graph,
     p: torch.Tensor,           # f32[B, n_pad]
@@ -248,51 +270,55 @@ def annealed_topk_propagate(
     and a settled sweep at ``min_delta`` stops. ``early_exit`` also stops
     once every row's certificate holds (:func:`_set_stable`).
 
+    A sweep's passes over the state are :mod:`~..ops.sweep_pass`'s: the
+    pre pass (the update of ``p``, the push's scaled operand and its bf16
+    copy, the stopping count), the push, the post pass (the dangling mass
+    at each column's source, the new residue, its column sums) and the
+    finalize (the loop's device scalars). On a card they are its kernels;
+    on the CPU their plain versions, the loop's operators before the
+    fusion, bit for bit.
+
     While a ``torch.profiler`` session runs it records each read of
     ``finished`` as the span ``loop.check``, and counts ``loop.sweeps``
     (the sweeps launched, the frozen ones before the stopping read
-    included) and ``loop.edge_cols`` (those sweeps times the tail's edges,
-    or the graph's without a hub split, times the columns): the work the
-    sparse tail's kernel did."""
-    dev = p.device
-    f32 = torch.float32
+    included), ``loop.fused_sweeps`` (those of them through the kernels:
+    all on a card, 0 on the CPU) and ``loop.edge_cols`` (the sweeps times
+    the tail's edges, or the graph's without a hub split, times the
+    columns): the work the sparse tail's kernel did."""
     alpha_f, keep, eps_f, thresh_scale = _loop_constants(alpha, eps)
     # node-major state [n_pad, B]: the per-edge gather reads [B]-wide rows
     p_t = p.T.contiguous()
     r_t = r.T.contiguous()
-    src_t = src_onehot.T.contiguous()
-    delta = torch.tensor(delta0, dtype=f32, device=dev)
-    finished = torch.zeros((), dtype=torch.bool, device=dev)
-    it = torch.zeros((), dtype=torch.int32, device=dev)
+    src = src_onehot.argmax(dim=1).to(torch.int32)   # each column's source
+    inv_deg, push = _scaled_push(g, hs, num_chunks)
+    bf16 = hs is not None and hs.dtype == torch.bfloat16
+    state = sweep_pass.LoopState.start(delta0, p.device)
 
     for sweep in range(MAX_TOPK_SWEEPS):
-        live = ~finished
-        # a frozen sweep adds r * 0: p is unchanged bit for bit
-        p_t = torch.addcmul(p_t, r_t, live * alpha_f)
-        r_new = _push_residue(g, r_t, src_t, keep, hs, num_chunks)
-        r_t = torch.where(live, r_new, r_t)
-
-        settled = live & (r_t.sum(dim=0).max() <= eps_f * delta)
-        thresh = thresh_scale * delta
-        done = settled & ((p_t >= thresh).sum(dim=0) >= k).all()
+        p_t, scaled, rhs, counts = sweep_pass.sweep_pre(
+            p_t, r_t, state, inv_deg, alpha=alpha_f, keep=keep,
+            thresh_scale=thresh_scale, bf16=bf16)
+        dang = ((r_t.index_select(0, g.dang_ids) * keep).sum(dim=0)
+                if g.dang_ids.numel() else None)
+        r_t, sums = sweep_pass.sweep_post(push(scaled, rhs), r_t, src, dang,
+                                          state)
         # while the loop is live, ``sweep`` is the JAX loop's ``it``; after
         # ``finished`` a certificate changes nothing
-        if early_exit and (sweep + 1) % EARLY_CHECK_EVERY == 0:
-            done = done | _set_stable(p_t, r_t, k).all()
-        finished = finished | done | (settled & (delta <= min_delta))
-        delta = torch.where(settled & ~finished,
-                            torch.clamp_min(delta / 4.0, min_delta), delta)
-        it = it + live.to(torch.int32)
+        stable = (_set_stable(p_t, r_t, k).all() if early_exit
+                  and (sweep + 1) % EARLY_CHECK_EVERY == 0 else None)
+        sweep_pass.sweep_finalize(state, counts, sums, k=k, eps=eps_f,
+                                  min_delta=min_delta, stable=stable)
         if (sweep + 1) % CHECK_EVERY == 0:
             with timer.span("loop.check"):
-                stop = bool(finished)
+                stop = bool(state.finished)
             if stop:
                 break
     if timer.recording():
         tail = hs.m_tail if hs is not None else g.m
         timer.count("loop.sweeps", sweep + 1)
+        timer.count("loop.fused_sweeps", sweep + 1 if p_t.is_cuda else 0)
         timer.count("loop.edge_cols", (sweep + 1) * tail * p_t.shape[1])
-    return p_t.T, r_t.T, it
+    return p_t.T, r_t.T, state.it
 
 
 def annealed_topk_propagate_perrow(

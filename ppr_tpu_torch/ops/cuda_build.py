@@ -56,6 +56,14 @@ SIGNATURES = {
             _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _VP),
         "ppr_row_gather": (_VP, _VP, _VP, _CI, _CI, _CI, _CI, _VP),
     },
+    "sweep_pass": {
+        "ppr_sweep_pre": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI,
+                          _CI, _CI, _CI, _CI, _CF, _CF, _CF, _VP),
+        "ppr_sweep_post": (_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI,
+                           _CI, _CI, _VP),
+        "ppr_sweep_finalize": (_VP, _CI, _VP, _CI, _CI, _CI, _VP, _VP, _VP,
+                               _VP, _VP, _CF, _CF, _VP),
+    },
 }
 _LIBRARY_OF = {symbol: name for name, symbols in SIGNATURES.items()
                for symbol in symbols}

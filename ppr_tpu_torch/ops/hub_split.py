@@ -159,13 +159,16 @@ def build_hub_split(g: Graph, num_hubs: int | str = 512,
     )
 
 
-def hub_product_t(hs: HubSplit, scaled_t: torch.Tensor) -> torch.Tensor:
+def hub_product_t(hs: HubSplit, scaled_t: torch.Tensor,
+                  rhs: torch.Tensor | None = None) -> torch.Tensor:
     """``hub_matrix^T @ scaled_t`` -> f32 ``[H, B]``, with the operand in
-    ``hs.dtype``."""
+    ``hs.dtype``; ``rhs``, where given, is ``scaled_t`` already cast to
+    bf16 (the annealed loop's pre pass writes it)."""
     if hs.dtype == torch.float32:
         set_exact_f32_matmul()
         return torch.matmul(hs.hub_matrix.T, scaled_t)
-    rhs = scaled_t.to(torch.bfloat16)
+    if rhs is None:
+        rhs = scaled_t.to(torch.bfloat16)
     if scaled_t.is_cuda:
         return torch.mm(hs.hub_matrix.T, rhs, out_dtype=torch.float32)
     set_exact_f32_matmul()
@@ -176,8 +179,16 @@ def push_out_hybrid_t(g: Graph, hs: HubSplit, a_t: torch.Tensor, *,
                       num_chunks: int = 1) -> torch.Tensor:
     """Hybrid push on a node-major operand ``a_t: [n_pad, B]``;
     ``num_chunks > 1`` walks the tail edges in sequential slices."""
-    scaled_t = a_t * _safe_inv_deg(g.out_deg)[:, None]        # [n_pad, B]
-    hub_vals_t = hub_product_t(hs, scaled_t)                  # [H, B]
+    return push_scaled_hybrid_t(hs, a_t * _safe_inv_deg(g.out_deg)[:, None],
+                                num_chunks=num_chunks)
+
+
+def push_scaled_hybrid_t(hs: HubSplit, scaled_t: torch.Tensor,
+                         rhs: torch.Tensor | None = None, *,
+                         num_chunks: int = 1) -> torch.Tensor:
+    """:func:`push_out_hybrid_t` of an operand already scaled by
+    ``1/d_out`` (``[n_pad, B]``), ``rhs`` its bf16 copy or None."""
+    hub_vals_t = hub_product_t(hs, scaled_t, rhs)             # [H, B]
     out_t = gather_segment_sum(scaled_t, hs.tail_src, hs.tail_ptr,
                                num_chunks)
     return out_t.index_add_(0, hs.hub_ids, hub_vals_t)
