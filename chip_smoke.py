@@ -1599,29 +1599,85 @@ def serving_layer(dev, ds, svc, sources, oracle, bench) -> dict[str, int]:
     check(counts["k3"] > 0, "the serving layer did not launch K3")
     check(counts["k0"] == 1, f"K0 ran {counts['k0']} times on the serving "
           "layer, not once")
+    check_sweep_passes("serving", counts, annealed=True)
     return counts
 
 
+#: sweeps the annealed loop launched since ``reset_launches``, counted by
+#: ``count_annealed_sweeps`` from each call's own sweep count
+ANNEALED_SWEEPS = [0]
+
+
+def count_annealed_sweeps() -> None:
+    """Wrap ``fora.annealed_topk_propagate`` (once a process) to add the
+    sweeps each call launches to ``ANNEALED_SWEEPS``: its live sweeps,
+    rounded up to the ``CHECK_EVERY`` sweeps between its reads of
+    ``finished``, at most ``MAX_TOPK_SWEEPS``. Counted apart from the
+    kernels, so that ``check_sweep_passes`` can hold their launches to
+    it."""
+    from ppr_tpu_torch.models import fora
+
+    real = fora.annealed_topk_propagate
+    if getattr(real, "counts_sweeps", False):
+        return
+
+    def counted(*a, **kw):
+        p, r, iters = real(*a, **kw)
+        ANNEALED_SWEEPS[0] += min(
+            -(-int(iters) // fora.CHECK_EVERY) * fora.CHECK_EVERY,
+            fora.MAX_TOPK_SWEEPS)
+        return p, r, iters
+
+    counted.counts_sweeps = True
+    fora.annealed_topk_propagate = counted
+
+
 def reset_launches() -> None:
-    """Zero every kernel's launch count; forget the probe, so K0 runs
-    again before the next hand-kernel launch."""
-    from ppr_tpu_torch.ops import dense_power, probe, row_gather
+    """Zero every kernel's launch count and the annealed loop's sweeps;
+    forget the probe, so K0 runs again before the next hand-kernel
+    launch."""
+    from ppr_tpu_torch.ops import dense_power, probe, row_gather, sweep_pass
 
     dense_power.launches = 0
     dense_power.pagerank_launches = 0
     row_gather.segment_sum_launches = 0
     row_gather.segment_sum_coef_launches = 0
     row_gather.gather_launches = 0
+    sweep_pass.pre_launches = 0
+    sweep_pass.post_launches = 0
+    sweep_pass.finalize_launches = 0
+    ANNEALED_SWEEPS[0] = 0
     probe.reset()
 
 
 def read_launches() -> dict[str, int]:
-    from ppr_tpu_torch.ops import dense_power, probe, row_gather
+    from ppr_tpu_torch.ops import dense_power, probe, row_gather, sweep_pass
 
     return {"k1": dense_power.launches, "k2": dense_power.pagerank_launches,
             "k0": probe.launches, "k3": row_gather.segment_sum_launches,
             "k3_coef": row_gather.segment_sum_coef_launches,
-            "gather": row_gather.gather_launches}
+            "gather": row_gather.gather_launches,
+            "sweep_pre": sweep_pass.pre_launches,
+            "sweep_post": sweep_pass.post_launches,
+            "sweep_fin": sweep_pass.finalize_launches,
+            "sweeps": ANNEALED_SWEEPS[0]}
+
+
+def check_sweep_passes(tag: str, counts: dict[str, int],
+                       annealed: bool = False) -> None:
+    """The annealed loop's fused passes on a path: one launch of each of
+    ``ppr_sweep_pre``, ``ppr_sweep_post`` and ``ppr_sweep_finalize`` a
+    sweep the loop launched there; some, where ``annealed`` (a path that
+    runs the loop)."""
+    pre, post, fin, sweeps = (counts[key] for key in (
+        "sweep_pre", "sweep_post", "sweep_fin", "sweeps"))
+    print(f"[{tag}] the annealed loop's passes: pre {pre}, post {post}, "
+          f"finalize {fin} launches for its {sweeps} sweeps")
+    check(pre == post == fin == sweeps,
+          f"[{tag}] the passes launched pre {pre}, post {post}, finalize "
+          f"{fin} times for the annealed loop's {sweeps} sweeps")
+    check(not annealed or sweeps > 0,
+          f"[{tag}] the annealed loop ran no sweep on the path")
 
 
 def run_protocol(tag: str, argv: list[str]):
@@ -1771,6 +1827,7 @@ def protocol_path(dev, k2_b128_ms: float) -> dict[str, int]:
     check_protocol_rows("grqc", rows, jax_rows=JAX_ROWS["grqc"])
 
     counts = read_launches()
+    check_sweep_passes("protocol", counts)
 
     # stores read back against direct computations: Forward Push on the
     # sparse graph (through K3), the Neo4j method against K2
@@ -1851,6 +1908,7 @@ def dataset_protocol_path(dev) -> tuple[dict[str, int], dict]:
           f"[protocol:datasets] {counts['k3']} K3 launches, {held.got} in "
           f"held calls; {held.bad[:4]}")
     check(counts["k0"] == 1, f"K0 ran {counts['k0']} times, not once")
+    check_sweep_passes("protocol:datasets", counts)
     check(counts["k1"] == counts["k2"] == 0,
           "the sparse stand-ins launched K1 or K2")
     return counts, {"walls_s": walls, "held_calls": held.calls}
@@ -2042,6 +2100,7 @@ def walk_path(dev, ds, hs) -> dict[str, int]:
     check(counts["k3"] > 0, "the walk path did not launch K3")
     check(counts["k1"] > 0, "the walk path's oracle did not launch K1")
     check(counts["k0"] == 1, f"K0 ran {counts['k0']} times, not once")
+    check_sweep_passes("protocol:walks", counts)
     return counts
 
 
@@ -2351,6 +2410,7 @@ def weighted_path(dev, wds, unweighted_walk_rate: float) -> dict[str, int]:
           f"version {plain_calls[0]}")
     check(counts["k3_coef"] > 0, "the weighted path did not launch K3's "
           "coefficient mode")
+    check_sweep_passes("weighted", counts)
     check(counts["k3"] == counts["k3_coef"],
           "the weighted path launched K3's unweighted mode")
     check(plain_calls[0] == 0, "the weighted path ran K3's plain version "
@@ -2421,6 +2481,7 @@ def neostore_path(dev) -> dict[str, int]:
           f"{counts['k1']}, K3 {counts['k3']}, K0 {counts['k0']}")
     check(counts["k2"] > 0, "the store's Neo4j method did not launch K2")
     check(counts["k0"] == 1, f"K0 ran {counts['k0']} times, not once")
+    check_sweep_passes("neostore", counts)
     return counts
 
 
@@ -2786,6 +2847,7 @@ def mesh_path(dev, ds, wds, sources, oracle) -> tuple[dict, dict]:
     check(launches["k3"] == tally["k3"]
           and launches["k3_coef"] == tally["k3_coef"],
           "[mesh] K3 launched outside the mesh engines' calls")
+    check_sweep_passes("mesh", launches)
     check(launches["k3"] > 0 and launches["k3_coef"] > 0,
           "[mesh] K3 was not launched in both modes on the mesh path")
     check(launches["k0"] == 1, "[mesh] K0 did not run once on the mesh path")
@@ -3361,6 +3423,7 @@ def mesh_protocol_path(dev, ds, sources, oracle) -> dict:
           f"launches a sweep: {held.bad[:5]}")
     check(launches["k3"] == held.got,
           "[mesh:protocol] K3 launched outside the held calls")
+    check_sweep_passes("mesh:protocol", launches)
     check(launches["k3"] > 0, "[mesh:protocol] K3 was not launched")
     check(launches["k0"] == 1, "[mesh:protocol] K0 did not run once")
 
@@ -3507,6 +3570,7 @@ def dist_rank(work: str) -> int:
     m22 = global_mesh(2, devices=[dev])
     m14 = global_mesh(4, devices=[dev])
     out, arrays, walls = {"rank": rank}, {}, {}
+    count_annealed_sweeps()
     reset_launches()
     with HeldK3(spanning=True) as held:
         for tag, eng in (("edge", ShardedForaTopk(ds, ALPHA, K, mesh=m22)),
@@ -3769,6 +3833,7 @@ def dist_path(dev, ds, sources, oracle) -> tuple[dict, dict]:
     print(f"[dist] launches summed over the ranks: {launches}; each rank's "
           f"K3 launches equal its held calls' sweeps x its own chunks or "
           f"ring blocks: {[got['held']['got'] for got in ranks]}")
+    check_sweep_passes("dist", launches)
     out["k3_launches"] = launches["k3"]
     out["walls"] = {key: max(got["walls"][key] for got in ranks)
                     for key in ranks[0]["walls"]}
@@ -3980,6 +4045,7 @@ def scale_path(dev, ds, bench_sweeps: int) -> tuple[dict, dict]:
           f"a sweep: {held.bad[:5]}")
     check(launches["k3"] == held.got and launches["k3"] > 0,
           "[scale] K3 launched outside the held calls")
+    check_sweep_passes("scale", launches, annealed=True)
     check(launches["k0"] == 1, "[scale] K0 did not run once")
 
     # --- [scale:1m:k3], outside the window ---------------------------------
@@ -4032,6 +4098,7 @@ def profile_sweep_path(dev, ds) -> tuple[dict, dict]:
     check(launches["k3"] == held.got and launches["k0"] == 1,
           f"[profile_sweep] launches {launches}: K3 outside the held calls "
           f"or K0 not once")
+    check_sweep_passes("profile_sweep", launches, annealed=True)
     check(np.array_equal(keep["sources"].cpu().numpy(), sources),
           "[profile_sweep] the driver's sources are not the oracle's")
     g = ds.graph
@@ -4108,7 +4175,54 @@ def serving_calibrate_path(ds) -> tuple[dict, dict]:
           f"[serving:calibrate] row {lrow}")
     check(launches["k3"] > 0 and launches["k0"] == 1,
           f"[serving:calibrate] launches {launches}: no K3, or K0 not once")
+    check_sweep_passes("serving:calibrate", launches, annealed=any(
+        r["path"] == "annealed" for r in cm["rungs"]))
     return launches, {"constants": c, "rungs": cm["rungs"], "row": lrow}
+
+
+def sweep_finalize_cases(dev, b: int, counts, sums, eps_f: float,
+                         n_rows: int) -> None:
+    """``ppr_sweep_finalize`` on the pass kernels' partial counts and sums
+    against ``sweep_finalize_ref`` on their column totals, from fresh
+    states: an unsettled sweep, settled ones that anneal, finish by the
+    count and finish at ``min_delta``, and a frozen one; ``delta``,
+    ``finished`` and ``it`` equal bit for bit, and the cases reach each
+    outcome."""
+    import torch
+
+    from ppr_tpu_torch.ops import sweep_pass
+
+    largest = float(sums.sum(dim=0).max())
+    low, high = largest / eps_f / 2, largest / eps_f * 2
+    never = n_rows + 1                 # more than any column can count
+    outcomes = set()
+    for delta, frozen, k, min_delta in (
+            (low, False, never, low / 64), (high, False, never, high / 64),
+            (high, False, K, high / 64), (high, False, never, high),
+            (high, True, never, high / 64)):
+        want, got = (sweep_pass.LoopState.start(delta, dev)
+                     for _ in range(2))
+        want.finished.fill_(frozen)
+        got.finished.fill_(frozen)
+        kw = dict(k=k, eps=eps_f, min_delta=float(np.float32(min_delta)))
+        sweep_pass.sweep_finalize_ref(want, counts.sum(dim=0),
+                                      sums.sum(dim=0), **kw)
+        sweep_pass.sweep_finalize(got, counts, sums, **kw)
+        same = (torch.equal(got.delta, want.delta)
+                and torch.equal(got.finished, want.finished)
+                and torch.equal(got.it, want.it))
+        check(same, f"[loop:sweep] B {b}: the finalize kernel differs from "
+              f"its plain version at delta {delta:.3e}, frozen {frozen}, k "
+              f"{k}: delta {float(got.delta)!r} / {float(want.delta)!r}, "
+              f"finished {bool(got.finished)} / {bool(want.finished)}, it "
+              f"{int(got.it)} / {int(want.it)}")
+        outcomes.add((bool(want.finished), float(want.delta) != delta,
+                       int(want.it)))
+    check(len(outcomes) == 4, f"[loop:sweep] B {b}: the finalize cases "
+          f"reached {sorted(outcomes)}, not the four outcomes")
+    print(f"[loop:sweep] B {b}: finalize equal bit for bit in delta, "
+          f"finished and it on 5 cases (unsettled, annealed, done, at "
+          f"min_delta, frozen)")
 
 
 def sweep_pass_phase(dev, n_rows: int = 80640) -> dict:
@@ -4116,7 +4230,8 @@ def sweep_pass_phase(dev, n_rows: int = 80640) -> dict:
     (``ops/sweep_pass.py``) against their plain versions at the flickr
     cell's state (80,640 rows; B 2,048 and 256; a bf16 hub operand): each
     kernel's outputs held to the plain version's bits (the column sums to
-    f32 reassociation, the counts exactly), then the median of 10
+    f32 reassociation, the counts exactly; the finalize by
+    :func:`sweep_finalize_cases`), then the median of 10
     CUDA-event-timed calls of each beside the plain sequence's and its
     byte bound (4.5 passes over the state for the pre pass, 1 for the
     post pass, at 3.35 TB/s); the launch counts last."""
@@ -4164,6 +4279,7 @@ def sweep_pass_phase(dev, n_rows: int = 80640) -> dict:
               f"[loop:sweep] B {b}: the post kernel differs from its plain "
               f"version (sums {sum_err:.2e})")
         counts, sums = got[3], got_s
+        sweep_finalize_cases(dev, b, counts, sums, eps_f, n_rows)
 
         def fin():
             sweep_pass.sweep_finalize(state, counts, sums, k=K, eps=eps_f,
@@ -4311,6 +4427,7 @@ def main() -> int:
     costs = calibrate_phase(dev, ds)
 
     # --- launch counts: the serving path from here on --------------------
+    count_annealed_sweeps()
     reset_launches()
 
     # --- 7. the serving path: the oracle ----------------------------------
@@ -4402,6 +4519,7 @@ def main() -> int:
     check(serving["k1"] > 0, "K1 was not launched on the serving path")
     check(serving["k0"] == 1, "K0 did not run once on the serving path")
     check(serving["k3"] > 0, "K3 was not launched on the serving path")
+    check_sweep_passes("bench", serving, annealed=True)
 
     # --- 8. where the time goes at the benchmark size ------------------
     profile_batch(algo, sources)
@@ -4578,7 +4696,12 @@ def main() -> int:
         "source": "ppr_tpu_torch/csrc/sweep_pass.cu",
         "replaces": "none: the annealed loop's passes, fused by XLA on the "
                     "TPU",
-        "launches": sweep["launches"],
+        "launches": {"pre": launches["sweep_pre"],
+                     "post": launches["sweep_post"],
+                     "finalize": launches["sweep_fin"],
+                     "sweeps": launches["sweeps"]},
+        "path": "the annealed loop: FORA top-k's path on the card",
+        "microbenchmark_launches": sweep["launches"],
         "shapes": {b: sweep[b] for b in (2048, 256)},
     }]}))
     print(card)
@@ -4590,35 +4713,7 @@ def main() -> int:
     return 0
 
 
-def sweep_pass_main() -> int:
-    """``python3 chip_smoke.py --sweep-pass``: the build of
-    ``sweep_pass.cu`` and ``[loop:sweep]`` alone."""
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the smoke runs only on a card",
-              file=sys.stderr)
-        return 1
-    from ppr_tpu_torch.ops import cuda_build
-
-    print(f"[card] {card_line()} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda}")
-    cuda_build.load_library("sweep_pass")
-    secs, log = cuda_build.BUILD_INFO["sweep_pass"]
-    print(f"[build] sweep_pass.cu: nvcc {secs:.2f} s")
-    for line in log.splitlines():
-        entry = kernel_entry(line)
-        if "entry function" in line and entry:
-            print(f"[build] ptxas: {entry}")
-        elif "registers" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}")
-    sweep_pass_phase(torch.device("cuda"))
-    return 0
-
-
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-rank"]:
         sys.exit(dist_rank(sys.argv[2]))
-    if sys.argv[1:2] == ["--sweep-pass"]:
-        sys.exit(sweep_pass_main())
     sys.exit(main())

@@ -72,7 +72,7 @@ import torch
 from ..device import synchronize
 from ..graph.csr import Graph
 from ..ops import sweep_pass
-from ..ops.hub_split import (HubSplit, build_hub_split, push_out_hybrid_t,
+from ..ops.hub_split import (HubSplit, build_hub_split,
                              push_scaled_hybrid_t)
 from ..ops.push import (apply_dangling_source_shortcircuit, forward_push_init,
                         forward_push_sweeps)
@@ -161,16 +161,13 @@ def _loop_constants(alpha: float, eps: float):
 
 def _push_residue(g: Graph, r_t: torch.Tensor, src_t: torch.Tensor,
                   keep: float, hs: HubSplit | None, num_chunks: int):
-    """One sweep's new residue: ``(1-alpha) r`` pushed along the out-edges,
-    the dangling rows' share returned to each column's source."""
+    """One sweep's new residue: ``(1-alpha) r`` pushed along the out-edges
+    (the push :func:`_scaled_push` picks), the dangling rows' share
+    returned to each column's source."""
     rem = r_t * keep
     dang_mass = rem.index_select(0, g.dang_ids).sum(dim=0, keepdim=True)
-    if hs is not None:
-        pushed = push_out_hybrid_t(g, hs, rem, num_chunks=num_chunks)
-    elif num_chunks > 1:
-        pushed = push_out_chunked_t(g, rem, num_chunks=num_chunks)
-    else:
-        pushed = push_out_t(g, rem)
+    inv_deg, push = _scaled_push(g, hs, num_chunks)
+    pushed = push(rem if inv_deg is None else rem * inv_deg[:, None], None)
     return pushed.addcmul_(dang_mass, src_t)
 
 
@@ -228,12 +225,13 @@ def residual_propagate(
 
 
 def _scaled_push(g: Graph, hs: HubSplit | None, num_chunks: int):
-    """The annealed loop's push of ``r * keep``, split at its scaling:
-    ``(inv_deg, push)``, where ``push(scaled, rhs)`` pushes ``scaled = (r *
-    keep) * inv_deg[:, None]``, or ``r * keep`` itself where ``inv_deg`` is
-    None (a weighted graph's coefficients, the dense operator), and
-    ``rhs`` is its bf16 copy for a bf16 hub product. The operators are
-    :func:`_push_residue`'s."""
+    """The sweep's push of ``r * keep``, split at its scaling: ``(inv_deg,
+    push)``, where ``push(scaled, rhs)`` pushes ``scaled = (r * keep) *
+    inv_deg[:, None]``, or ``r * keep`` itself where ``inv_deg`` is None (a
+    weighted graph's coefficients, the dense operator), and ``rhs`` is its
+    bf16 copy for a bf16 hub product, or None. The one choice of the push
+    for :func:`_push_residue` and the annealed loop, with the operators of
+    ``push_out_t``, ``push_out_chunked_t`` and ``push_out_hybrid_t``."""
     if hs is not None:
         return _safe_inv_deg(g.out_deg), lambda s, rhs: push_scaled_hybrid_t(
             hs, s, rhs, num_chunks=num_chunks)
@@ -281,8 +279,8 @@ def annealed_topk_propagate(
     While a ``torch.profiler`` session runs it records each read of
     ``finished`` as the span ``loop.check``, and counts ``loop.sweeps``
     (the sweeps launched, the frozen ones before the stopping read
-    included), ``loop.fused_sweeps`` (those of them through the kernels:
-    all on a card, 0 on the CPU) and ``loop.edge_cols`` (the sweeps times
+    included), ``loop.fused_sweeps`` (the pre pass kernel's
+    launches over the call: every sweep on a card, 0 on the CPU) and ``loop.edge_cols`` (the sweeps times
     the tail's edges, or the graph's without a hub split, times the
     columns): the work the sparse tail's kernel did."""
     alpha_f, keep, eps_f, thresh_scale = _loop_constants(alpha, eps)
@@ -293,6 +291,7 @@ def annealed_topk_propagate(
     inv_deg, push = _scaled_push(g, hs, num_chunks)
     bf16 = hs is not None and hs.dtype == torch.bfloat16
     state = sweep_pass.LoopState.start(delta0, p.device)
+    launched = sweep_pass.pre_launches
 
     for sweep in range(MAX_TOPK_SWEEPS):
         p_t, scaled, rhs, counts = sweep_pass.sweep_pre(
@@ -316,7 +315,8 @@ def annealed_topk_propagate(
     if timer.recording():
         tail = hs.m_tail if hs is not None else g.m
         timer.count("loop.sweeps", sweep + 1)
-        timer.count("loop.fused_sweeps", sweep + 1 if p_t.is_cuda else 0)
+        timer.count("loop.fused_sweeps",
+                    sweep_pass.pre_launches - launched)
         timer.count("loop.edge_cols", (sweep + 1) * tail * p_t.shape[1])
     return p_t.T, r_t.T, state.it
 
