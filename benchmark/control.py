@@ -57,10 +57,8 @@ def narrow_readings(man: Manifest, workload: str, seed: int, rows: int,
     """The program's readings on ``batches`` calls of ``rows`` sources
     each, on the cell's graph from ``seed``."""
     cfg = man.config(man.cell(workload))
-    eng, gen, n = cfg["engine"], cfg["generator"], cfg["nodes"]
-    src, dst = graphgen.generate(n, cfg["edges"], seed,
-                                 max_degree=gen["max_degree"],
-                                 undirected=gen["undirected"])
+    eng, n = cfg["engine"], cfg["nodes"]
+    src, dst = graphgen.draw(cfg, seed)
     svc, _ = run.build_service(cfg, src, dst, device)
     rng = np.random.default_rng([seed, 5])
     svc.top_k(traffic.sources(rng, n, rows))          # first call

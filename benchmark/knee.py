@@ -125,11 +125,8 @@ def main(argv=None) -> int:
     path = Path(args.config) if args.config.endswith(".json") \
         else HERE / "configs" / f"{args.config}.json"
     cfg = json.loads(path.read_text())
-    gen = cfg["generator"]
     t = time.perf_counter()
-    src, dst = graphgen.generate(cfg["nodes"], cfg["edges"], args.seed,
-                                 max_degree=gen["max_degree"],
-                                 undirected=gen["undirected"])
+    src, dst = graphgen.draw(cfg, args.seed)
     svc, _ = run.build_service(cfg, src, dst, device)
     server = run.start_server(svc, {"max_batch": args.max_batch})
     times = rung_ms(svc, cfg["nodes"], args.max_batch, args.seed)

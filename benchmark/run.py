@@ -245,15 +245,12 @@ def measure(man: Manifest, workload: str, seed: int, seconds: float,
     the program; ``t_start`` is when set-up began."""
     cell = man.cell(workload)
     cfg, mix = man.config(cell), man.traffic(cell)
-    gen = cfg["generator"]
     traffic_rng, check_rng = rngs(seed)
     t = time.perf_counter()
-    src, dst = graphgen.generate(cfg["nodes"], cfg["edges"],
-                                 int(seed) % (1 << 63),
-                                 max_degree=gen["max_degree"],
-                                 undirected=gen["undirected"])
+    src, dst = graphgen.draw(cfg, seed)
     setup = {"generate_s": time.perf_counter() - t}
-    log("graph: " + json.dumps(graphgen.degree_summary(src, cfg["nodes"])))
+    log("graph: " + json.dumps(graphgen.degree_summary(src, cfg["nodes"],
+                                                       dst)))
     svc, steps = build_service(cfg, src, dst, device)
     setup.update(steps)
     tracer = Tracer(device) if trace else None

@@ -111,10 +111,8 @@ def test_the_control_fails_the_check_at_the_cells_size(workload):
 
     man = Manifest()
     cfg = man.config(man.cell(workload))
-    n, gen = cfg["nodes"], cfg["generator"]
-    src, dst = graphgen.generate(n, cfg["edges"], 21,
-                                 max_degree=gen["max_degree"],
-                                 undirected=gen["undirected"])
+    n = cfg["nodes"]
+    src, dst = graphgen.draw(cfg, 21)
     sources = np.random.default_rng(21).integers(0, n, 64)
     op = reference.Operator(src, dst, n, "cuda")
     ctl = reference.control_answers(src, dst, n, sources, ALPHA,
@@ -135,8 +133,8 @@ def test_a_sound_tiny_run_is_correct(tiny_manifest):
     assert list(out)[-1] == "checks"
 
 
-def _unchanged(g, r_t, *args, **kwargs):
-    return r_t
+def _unchanged(pushed, r, src, dang, state):
+    return r, r.sum(dim=0)
 
 
 def _half_batch(real):
@@ -159,15 +157,17 @@ def _altered(real):
 def test_a_broken_timed_path_is_not_correct(tiny_manifest, monkeypatch,
                                             fault):
     """The rest of a run, the harness's look for a card skipped, with the
-    timed path broken underneath: a sweep that returns its state unchanged,
-    half of each batch computed and its answers handed to the rest, a node
-    id altered where the answer is produced. (One card: no exchange
-    between chips exists to leave out.)"""
+    timed path broken underneath: a sweep that returns its state unchanged
+    (the annealed loop's post pass handing back the old residue), half of
+    each batch computed and its answers handed to the rest, a node id
+    altered where the answer is produced. (One card: no exchange between
+    chips exists to leave out.)"""
     from ppr_tpu_torch.models import fora
+    from ppr_tpu_torch.ops import sweep_pass
     from ppr_tpu_torch.service import PPRService
 
     if fault == "state_unchanged":
-        monkeypatch.setattr(fora, "_push_residue", _unchanged)
+        monkeypatch.setattr(sweep_pass, "sweep_post", _unchanged)
     elif fault == "half_batch":
         monkeypatch.setattr(PPRService, "top_k",
                             _half_batch(PPRService.top_k))
