@@ -282,7 +282,14 @@ def annealed_topk_propagate(
     included), ``loop.fused_sweeps`` (the pre pass kernel's
     launches over the call: every sweep on a card, 0 on the CPU) and ``loop.edge_cols`` (the sweeps times
     the tail's edges, or the graph's without a hub split, times the
-    columns): the work the sparse tail's kernel did."""
+    columns): the work the sparse tail's kernel did; ``loop.state_elems``
+    (the sweeps times ``n_pad`` times the columns: the elements each pass
+    over the state touches), ``loop.bf16_copy_elems`` (the same where
+    the pre pass writes the bf16 copy, else 0) and ``loop.dangling_cols``
+    (the sweeps times the dangling rows times the columns: the rows the
+    dangling mass gathers). Each sweep's dangling mass is the span
+    ``loop.dangling_mass``, which names its operators' kernels in the
+    device trace. No count reads the card."""
     alpha_f, keep, eps_f, thresh_scale = _loop_constants(alpha, eps)
     # node-major state [n_pad, B]: the per-edge gather reads [B]-wide rows
     p_t = p.T.contiguous()
@@ -292,13 +299,16 @@ def annealed_topk_propagate(
     bf16 = hs is not None and hs.dtype == torch.bfloat16
     state = sweep_pass.LoopState.start(delta0, p.device)
     launched = sweep_pass.pre_launches
+    n_dang = g.dang_ids.numel()
 
     for sweep in range(MAX_TOPK_SWEEPS):
         p_t, scaled, rhs, counts = sweep_pass.sweep_pre(
             p_t, r_t, state, inv_deg, alpha=alpha_f, keep=keep,
             thresh_scale=thresh_scale, bf16=bf16)
-        dang = ((r_t.index_select(0, g.dang_ids) * keep).sum(dim=0)
-                if g.dang_ids.numel() else None)
+        dang = None
+        if n_dang:
+            with timer.span("loop.dangling_mass"):
+                dang = (r_t.index_select(0, g.dang_ids) * keep).sum(dim=0)
         r_t, sums = sweep_pass.sweep_post(push(scaled, rhs), r_t, src, dang,
                                           state)
         # while the loop is live, ``sweep`` is the JAX loop's ``it``; after
@@ -314,10 +324,15 @@ def annealed_topk_propagate(
                 break
     if timer.recording():
         tail = hs.m_tail if hs is not None else g.m
+        n_pad, cols = p_t.shape
         timer.count("loop.sweeps", sweep + 1)
         timer.count("loop.fused_sweeps",
                     sweep_pass.pre_launches - launched)
-        timer.count("loop.edge_cols", (sweep + 1) * tail * p_t.shape[1])
+        timer.count("loop.edge_cols", (sweep + 1) * tail * cols)
+        timer.count("loop.state_elems", (sweep + 1) * n_pad * cols)
+        timer.count("loop.bf16_copy_elems",
+                    (sweep + 1) * n_pad * cols if bf16 else 0)
+        timer.count("loop.dangling_cols", (sweep + 1) * n_dang * cols)
     return p_t.T, r_t.T, state.it
 
 
@@ -707,6 +722,8 @@ class ForaTopk(_ForaCostModel, PPRAlgorithm):
         self.last_round_walks: list[int] = []
         #: the path the last batch call took (:meth:`path_cost`)
         self.last_path: str | None = None
+        #: the dangling nodes on the host, for the ``loop.topk`` span
+        self._dang_ids = dataset.graph.dang_ids.cpu().numpy()
         self._init_cost_constants()
 
     def path_cost(self, eps: float, batch: int) -> tuple[float, float, str]:
@@ -745,7 +762,7 @@ class ForaTopk(_ForaCostModel, PPRAlgorithm):
                 g, sources_t, result, torch.zeros_like(result), src_onehot
             )
             out = result.cpu().numpy()[:b]
-            self._note_loop(sp, len(sources))
+            self._note_loop(sp, sources, b)
         return out
 
     def compute_topk_ids_batch(self, sources: np.ndarray, k: int, param, *,
@@ -766,18 +783,22 @@ class ForaTopk(_ForaCostModel, PPRAlgorithm):
             vals, ids = _device_topk_epilogue(g, sources_t, result,
                                               src_onehot, kcap)
             out = vals.cpu().numpy()[:b], ids.cpu().numpy()[:b]
-            self._note_loop(sp, len(sources))
+            self._note_loop(sp, sources, b)
         return out
 
-    def _note_loop(self, sp, columns: int) -> None:
+    def _note_loop(self, sp, sources: np.ndarray, b: int) -> None:
         """The ``loop.topk`` span's attributes: the ``path`` the last call
         took, its ``sweeps`` (the annealed loop's count) or ``rounds``
-        (push+walks), its ``columns`` and ``tail_edges``, the edges the
-        sparse tail's kernel sweeps (the graph's without a hub split)."""
+        (push+walks), its ``columns`` (the padded batch), its
+        ``dangling_sources`` (the first ``b`` sources, the caller's rows,
+        with out-degree 0) and ``tail_edges``, the edges the sparse tail's
+        kernel sweeps (the graph's without a hub split)."""
         if sp is timer.NO_SPAN:
             return
         hs = self.hub_split
-        sp.set(path=self.last_path, columns=columns,
+        dangling = int(np.isin(sources[:b], self._dang_ids).sum())
+        sp.set(path=self.last_path, columns=len(sources),
+               dangling_sources=dangling,
                tail_edges=hs.m_tail if hs is not None else self.graph.m,
                **{"sweeps" if self.last_path == "annealed" else "rounds":
                   self.last_iters})
