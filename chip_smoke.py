@@ -3869,6 +3869,89 @@ def hub_constants_phase(g) -> dict:
     return pr
 
 
+def no_split_case(dev, bf16, n: int = 262144, m: int = 1234877,
+                  b: int = 2048) -> dict:
+    """``"auto"`` where no node passes the rule's threshold: 262,144 nodes
+    (n_pad 262,272, one 128-row tile over amazon0302's) and amazon0302's
+    edge count with uniform in-links (the largest ~20, against a threshold
+    of ~749), so that every edge goes through K3 at about the main path's
+    shape. ``resolve_hub_split``,
+    ``enable_hub_split(dtype=bf16)`` and ``PPRService(hub_split="auto")``
+    hold no split; one B ``b`` call after a warm-up, traced by the
+    recorder: the annealed path, ``hubs`` 0 and ``tail_edges`` m on its
+    ``loop.topk`` span, no bf16 copy, one pre, post and finalize launch
+    and one K3 launch a sweep launched, precision@10 >= 0.99 against the
+    power method (tie tol eps/n)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ppr_tpu_torch.graph.csr import build_graph
+    from ppr_tpu_torch.graph.io import Dataset
+    from ppr_tpu_torch.models import power_method
+    from ppr_tpu_torch.models.fora import ForaTopk
+    from ppr_tpu_torch.ops.hub_split import over_threshold, resolve_hub_split
+    from ppr_tpu_torch.service import PPRService
+    from ppr_tpu_torch.utils import timer
+
+    rng = np.random.default_rng(2)
+    g = build_graph(rng.integers(0, n, m), rng.integers(0, n, m), n,
+                    device=dev)
+    ds = Dataset(graph=g, names=[str(i) for i in range(n)], name="uniform")
+    min_deg, over = over_threshold(g, bf16)
+    svc = PPRService(ds, alpha=ALPHA, eps=EPS, k=K, hub_split="auto",
+                     hub_dtype=bf16)
+    eng = ForaTopk(ds, ALPHA, K, seed=7, push="none")
+    eng.enable_hub_split(dtype=bf16)
+    held_none = (resolve_hub_split(g, "auto", bf16) is None
+                 and eng.hub_split is None and svc._topk_algo.hub_split is None
+                 and svc._wg_algo.hub_split is None)
+    check(over == 0 and held_none, f"[hubs:auto:none] {over} nodes over "
+          f"{min_deg:.1f} in-links; a caller holds a split")
+    del svc
+    sources = rng.integers(0, n, b)
+    oracle = power_method.power_method_batch(
+        g, sources[:32], ALPHA, ITERS).cpu().numpy()
+    eng.compute_topk_ids_batch(sources, K, EPS)             # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.compute_topk_ids_batch(sources, K, EPS)
+    dt = time.perf_counter() - t0
+    before = read_launches()
+    timer.RECORDER.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        vals, ids = eng.compute_topk_ids_batch(sources, K, EPS)
+    c = timer.RECORDER.counters()
+    (sp,) = [x for x in timer.RECORDER.spans() if x.name == "loop.topk"]
+    timer.RECORDER.clear()
+    got = {key: v - before[key] for key, v in read_launches().items()}
+    prec = precision(oracle, tie_tolerant_ids(vals, ids, 32, EPS / n))
+    row = {"hubs": 0, "qps": len(sources) / dt, "ms": dt * 1e3,
+           "sweeps": eng.last_iters, "precision": prec, "tail_edges": g.m,
+           "min_deg": min_deg, "max_in_deg": int(g.in_deg.max()),
+           "launches": got}
+    print(f"[hubs:auto:none] n_pad {g.n_pad}, m {g.m}, largest in-degree "
+          f"{row['max_in_deg']} against the rule's {min_deg:.1f}: no split "
+          f"through every caller; B={b}: {dt * 1e3:.1f} ms = "
+          f"{row['qps']:.1f} qps, path {eng.last_path}, sweeps "
+          f"{eng.last_iters}, span hubs {sp.attrs['hubs']} tail edges "
+          f"{sp.attrs['tail_edges']}, bf16 copy "
+          f"{c['loop.bf16_copy_elems'][0]:.0f} elements, launches pre "
+          f"{got['sweep_pre']} post {got['sweep_post']} finalize "
+          f"{got['sweep_fin']} K3 {got['k3']} for {got['sweeps']} sweeps "
+          f"launched, precision@10 {prec:.4f}")
+    check(eng.last_path == "annealed" and sp.attrs["hubs"] == 0
+          and sp.attrs["tail_edges"] == g.m
+          and c["loop.bf16_copy_elems"][0] == 0,
+          "[hubs:auto:none] not the annealed loop without a split")
+    check(got["sweeps"] > 0 and got["sweep_pre"] == got["sweep_post"]
+          == got["sweep_fin"] == got["k3"] == got["sweeps"],
+          f"[hubs:auto:none] launches {got}, want one of each a sweep")
+    check(prec >= 0.99, f"[hubs:auto:none] precision@10 {prec}")
+    del eng, g, ds
+    torch.cuda.empty_cache()
+    return row
+
+
 def scale_path(dev, ds, bench_sweeps: int) -> tuple[dict, dict]:
     """The automatic hub count and the 1M cell: after
     ``[hubs:constants]``, one launch window, every K3 launch in it held
@@ -3878,8 +3961,10 @@ def scale_path(dev, ds, bench_sweeps: int) -> tuple[dict, dict]:
       bench graph; at B 512 one call of ``compute_topk_ids_batch`` at the
       rule's count and one at 4096, in turns after a warm-up each: qps,
       sweeps, precision@10 against the power method (tie tol eps/n), each
-      >= 0.99; ``bench_torch.hub_count`` still 4096 at B 2048 and the
-      ``[bench]`` call's sweeps still 77;
+      >= 0.99; ``"auto"`` through ``resolve_hub_split`` on the bench
+      graph (a split), then :func:`no_split_case` (no split);
+      ``bench_torch.hub_count`` still 4096 at B 2048 and the ``[bench]``
+      call's sweeps still 77;
     * ``[scale:1m]``: ``scale_1m_torch.measure`` at B 256 (the automatic
       hub count): recall@10 >= 0.99 against ``power_method_batch``, itself
       within 1e-5 of a float64 scipy power iteration on the same 4
@@ -3903,7 +3988,8 @@ def scale_path(dev, ds, bench_sweeps: int) -> tuple[dict, dict]:
     import scale_1m_torch
     from ppr_tpu_torch.models import power_method
     from ppr_tpu_torch.models.fora import ForaTopk
-    from ppr_tpu_torch.ops.hub_split import auto_num_hubs, build_hub_split
+    from ppr_tpu_torch.ops.hub_split import (auto_num_hubs, build_hub_split,
+                                             resolve_hub_split)
     from ppr_tpu_torch.parallel.mesh import make_mesh
 
     wall0 = time.perf_counter()
@@ -3945,6 +4031,15 @@ def scale_path(dev, ds, bench_sweeps: int) -> tuple[dict, dict]:
         del engines
         torch.cuda.empty_cache()
         bench_hubs = bench_torch.hub_count(2048)
+        no_split = resolve_hub_split(ds.graph, "auto", bf16) is None
+        print(f"[hubs:auto] \"auto\" makes "
+              f"{'no split' if no_split else 'a split'} on the bench graph")
+        check(not no_split, "[hubs:auto] \"auto\" makes no split on the "
+              "bench graph")
+        held.hold("hubs:auto", mark)
+        mark = held.mark()
+        rows["none"] = no_split_case(dev, bf16)
+        held.hold("hubs:auto:none", mark)
         print(f"[hubs:auto] the rule's count on the bench graph {rule}; "
               f"bench_torch's count at B 2048 {bench_hubs}, at B 512 "
               f"{bench_torch.hub_count(512)!r}; [bench] sweeps "
@@ -3953,7 +4048,6 @@ def scale_path(dev, ds, bench_sweeps: int) -> tuple[dict, dict]:
               "hubs at B 2048")
         check(bench_sweeps == 77, f"[hubs:auto] [bench] took {bench_sweeps} "
               "sweeps, not 77")
-        held.hold("hubs:auto", mark)
 
         # --- [scale:1m] ---------------------------------------------------
         t0 = time.perf_counter()
@@ -4049,7 +4143,7 @@ def scale_path(dev, ds, bench_sweeps: int) -> tuple[dict, dict]:
     check(launches["k0"] == 1, "[scale] K0 did not run once")
 
     # --- [scale:1m:k3], outside the window ---------------------------------
-    hs1m = build_hub_split(g1m, "auto", dtype=bf16)
+    hs1m = build_hub_split(g1m, auto_num_hubs(g1m, bf16), bf16)
     k3 = k3_cases(dev, [dict(label="1M tail, 16 columns", n_rows=g1m.n_pad,
                              src=hs1m.tail_src, ptr=hs1m.tail_ptr, b=16,
                              cold=True)], tag="scale:1m:k3")
@@ -4225,16 +4319,25 @@ def sweep_finalize_cases(dev, b: int, counts, sums, eps_f: float,
           f"min_delta, frozen)")
 
 
-def sweep_pass_phase(dev, n_rows: int = 80640) -> dict:
+#: ``[loop:sweep]``'s shapes: flickr's state (80,640 rows) at B 2,048 and
+#: 256, and amazon0302's (262,144) at B 2,048, each with and without the
+#: bf16 copy of the push's operand
+SWEEP_SHAPES = [(rows, b, bf16) for rows, b in ((80640, 2048), (80640, 256),
+                                                (262144, 2048))
+                for bf16 in (True, False)]
+
+
+def sweep_pass_phase(dev) -> dict:
     """``[loop:sweep]``: the annealed loop's fused passes
-    (``ops/sweep_pass.py``) against their plain versions at the flickr
-    cell's state (80,640 rows; B 2,048 and 256; a bf16 hub operand): each
-    kernel's outputs held to the plain version's bits (the column sums to
-    f32 reassociation, the counts exactly; the finalize by
-    :func:`sweep_finalize_cases`), then the median of 10
-    CUDA-event-timed calls of each beside the plain sequence's and its
-    byte bound (4.5 passes over the state for the pre pass, 1 for the
-    post pass, at 3.35 TB/s); the launch counts last."""
+    (``ops/sweep_pass.py``) against their plain versions at each of
+    ``SWEEP_SHAPES``: each kernel's outputs held to the plain version's
+    bits (the column sums to f32 reassociation, the counts exactly; the
+    finalize by :func:`sweep_finalize_cases`), one launch of the pre
+    kernel and two of the post kernel for the checks, then the median of
+    10 CUDA-event-timed calls of each beside the plain sequence's and its
+    byte bound (4.5 passes over the state for the pre pass with the bf16
+    copy, 4 without, 1 for the post pass, at 3.35 TB/s); the launch counts
+    last."""
     import torch
 
     from ppr_tpu_torch.models.fora import _loop_constants
@@ -4242,31 +4345,38 @@ def sweep_pass_phase(dev, n_rows: int = 80640) -> dict:
     from ppr_tpu_torch.ops.spmv import _safe_inv_deg
 
     alpha_f, keep, eps_f, ts = _loop_constants(ALPHA, EPS / 2)
-    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
     before = (sweep_pass.pre_launches, sweep_pass.post_launches,
               sweep_pass.finalize_launches)
-    out = {}
-    for b in (2048, 256):
+    out = {"shapes": {}}
+    for n_rows, b, bf16 in SWEEP_SHAPES:
+        tag = f"[loop:sweep] {n_rows} x {b}{', bf16 copy' if bf16 else ''}"
+
         def draw():
-            x = rng.random((n_rows, b), dtype=np.float32) * (2.0 / n_rows)
-            return torch.as_tensor(x, device=dev)
+            return torch.rand((n_rows, b), device=dev,
+                              generator=gen) * (2.0 / n_rows)
 
         p, r, pushed = draw(), draw(), draw()
-        inv = _safe_inv_deg(torch.as_tensor(
-            rng.integers(0, 300, n_rows).astype(np.int32), device=dev))
-        src = torch.as_tensor(rng.integers(0, n_rows, b).astype(np.int32),
-                              device=dev)
+        inv = _safe_inv_deg(torch.randint(0, 300, (n_rows,), device=dev,
+                                          generator=gen, dtype=torch.int32))
+        src = torch.randint(0, n_rows, (b,), device=dev, generator=gen,
+                            dtype=torch.int32)
         dang = (r[:64] * keep).sum(dim=0)
         state = sweep_pass.LoopState.start(1.0 / n_rows, dev)
-        kw = dict(alpha=alpha_f, keep=keep, thresh_scale=ts, bf16=True)
+        kw = dict(alpha=alpha_f, keep=keep, thresh_scale=ts, bf16=bf16)
 
         want = sweep_pass.sweep_pre_ref(p, r, state, inv, **kw)
+        pre0, post0 = sweep_pass.pre_launches, sweep_pass.post_launches
         got = sweep_pass.sweep_pre(p.clone(), r, state, inv, **kw)
-        check(all(torch.equal(x, y) for x, y in zip(got[:3], want[:3]))
+        same_rhs = (got[2] is None and want[2] is None if not bf16 else
+                    got[2] is not None and torch.equal(got[2], want[2]))
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+              and same_rhs
               and torch.equal(got[3].reshape(-1, b).sum(dim=0).long(),
                               want[3].long()),
-              f"[loop:sweep] B {b}: the pre kernel differs from its plain "
-              "version")
+              f"{tag}: the pre kernel differs from its plain version")
+        del want
         want_r, want_s = sweep_pass.sweep_post_ref(pushed.clone(), r, src,
                                                    dang, state)
         got_r, got_s = sweep_pass.sweep_post(pushed.clone(), r, src, dang,
@@ -4276,9 +4386,14 @@ def sweep_pass_phase(dev, n_rows: int = 80640) -> dict:
                          / want_s.abs().clamp_min(1e-30)).max())
         check(torch.equal(got_r, want_r) and torch.equal(got_s, again)
               and sum_err < 1e-5,
-              f"[loop:sweep] B {b}: the post kernel differs from its plain "
-              f"version (sums {sum_err:.2e})")
+              f"{tag}: the post kernel differs from its plain version (sums "
+              f"{sum_err:.2e})")
+        checked = (sweep_pass.pre_launches - pre0,
+                   sweep_pass.post_launches - post0)
+        check(checked == (1, 2), f"{tag}: the checks launched pre "
+              f"{checked[0]}, post {checked[1]} times, not 1 and 2")
         counts, sums = got[3], got_s
+        del got, got_r, want_r
         sweep_finalize_cases(dev, b, counts, sums, eps_f, n_rows)
 
         def fin():
@@ -4286,12 +4401,14 @@ def sweep_pass_phase(dev, n_rows: int = 80640) -> dict:
                                       min_delta=1.0 / n_rows)
 
         pass_bytes = n_rows * b * 4.0
+        passes = 4.5 if bf16 else 4.0
         row = {
+            "rows": n_rows, "b": b, "bf16": bf16,
             "pre_ms": cuda_ms(lambda: sweep_pass.sweep_pre(p, r, state, inv,
                                                            **kw)),
             "pre_plain_ms": cuda_ms(lambda: sweep_pass.sweep_pre_ref(
                 p, r, state, inv, **kw)),
-            "pre_bound_ms": 4.5 * pass_bytes / 3.35e12 * 1e3,
+            "pre_bound_ms": passes * pass_bytes / 3.35e12 * 1e3,
             "post_ms": cuda_ms(lambda: sweep_pass.sweep_post(
                 pushed, r, src, dang, state)),
             "post_plain_ms": cuda_ms(lambda: sweep_pass.sweep_post_ref(
@@ -4300,15 +4417,17 @@ def sweep_pass_phase(dev, n_rows: int = 80640) -> dict:
             "finalize_ms": cuda_ms(fin),
             "sum_rel_err": sum_err,
         }
-        out[b] = row
-        print(f"[loop:sweep] B {b}: equal bit for bit (column sums within "
+        out["shapes"][f"{n_rows}x{b}{'_bf16' if bf16 else ''}"] = row
+        print(f"{tag}: equal bit for bit (column sums within "
               f"{sum_err:.1e}, the same bits twice); pre "
               f"{row['pre_ms']:.4f} ms (plain {row['pre_plain_ms']:.4f}, "
-              f"bound {row['pre_bound_ms']:.4f}, 4.5 passes), post "
+              f"bound {row['pre_bound_ms']:.4f}, {passes} passes), post "
               f"{row['post_ms']:.4f} ms (plain {row['post_plain_ms']:.4f}, "
               f"bound {row['post_bound_ms']:.4f}, 1 pass), finalize "
               f"{row['finalize_ms']:.4f} ms (median of 10, one call "
               "between events)")
+        del p, r, pushed, counts, sums, again
+        torch.cuda.empty_cache()
     launches = (sweep_pass.pre_launches - before[0],
                 sweep_pass.post_launches - before[1],
                 sweep_pass.finalize_launches - before[2])
@@ -4702,7 +4821,7 @@ def main() -> int:
                      "sweeps": launches["sweeps"]},
         "path": "the annealed loop: FORA top-k's path on the card",
         "microbenchmark_launches": sweep["launches"],
-        "shapes": {b: sweep[b] for b in (2048, 256)},
+        "shapes": sweep["shapes"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -72,8 +72,8 @@ import torch
 from ..device import synchronize
 from ..graph.csr import Graph
 from ..ops import sweep_pass
-from ..ops.hub_split import (HubSplit, build_hub_split,
-                             push_scaled_hybrid_t)
+from ..ops.hub_split import (HubSplit, push_scaled_hybrid_t,
+                             resolve_hub_split)
 from ..ops.push import (apply_dangling_source_shortcircuit, forward_push_init,
                         forward_push_sweeps)
 from ..ops.spmv import (_safe_inv_deg, gather_segment_sum,
@@ -535,10 +535,12 @@ class _ForaCostModel:
     def enable_hub_split(self, num_hubs: int | str = "auto",
                          dtype=None) -> None:
         """Use the dense-hub hybrid push with ``num_hubs`` hubs, by default
-        the automatic count (:func:`~..ops.hub_split.auto_num_hubs`); the
-        hub product is f32 unless ``dtype=torch.bfloat16``."""
+        the automatic count (:func:`~..ops.hub_split.auto_num_hubs`), or
+        none where no node passes its threshold
+        (:func:`~..ops.hub_split.resolve_hub_split`); the hub product is
+        f32 unless ``dtype=torch.bfloat16``."""
         kwargs = {} if dtype is None else {"dtype": dtype}
-        self.hub_split = build_hub_split(self.graph, num_hubs, **kwargs)
+        self.hub_split = resolve_hub_split(self.graph, num_hubs, **kwargs)
 
     def calibrate(self, **kwargs):
         """Measure the walk, sweep and transfer costs on this graph and
@@ -791,14 +793,16 @@ class ForaTopk(_ForaCostModel, PPRAlgorithm):
         took, its ``sweeps`` (the annealed loop's count) or ``rounds``
         (push+walks), its ``columns`` (the padded batch), its
         ``dangling_sources`` (the first ``b`` sources, the caller's rows,
-        with out-degree 0) and ``tail_edges``, the edges the sparse tail's
-        kernel sweeps (the graph's without a hub split)."""
+        with out-degree 0), ``hubs``, the hub count (0 without a hub
+        split), and ``tail_edges``, the edges the sparse tail's kernel
+        sweeps (the graph's without a hub split)."""
         if sp is timer.NO_SPAN:
             return
         hs = self.hub_split
         dangling = int(np.isin(sources[:b], self._dang_ids).sum())
         sp.set(path=self.last_path, columns=len(sources),
                dangling_sources=dangling,
+               hubs=hs.num_hubs if hs is not None else 0,
                tail_edges=hs.m_tail if hs is not None else self.graph.m,
                **{"sweeps" if self.last_path == "annealed" else "rounds":
                   self.last_iters})

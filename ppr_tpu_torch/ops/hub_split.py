@@ -22,9 +22,13 @@ A weighted graph has no hub split: the hub matrix holds edge
 multiplicities scaled by ``1/d_v``, and :func:`build_hub_split` refuses
 one, as the JAX package does.
 
-``num_hubs="auto"`` takes :func:`auto_num_hubs`, the JAX package's rule
-with prices measured on the H100 in place of its TPU v5e ones
-(``hub_knee_torch.py --constants``).
+``num_hubs="auto"`` is resolved by :func:`resolve_hub_split` alone (for
+``PPRService`` and ``enable_hub_split``): no split where no node passes
+the threshold of :func:`auto_num_hubs`, the JAX package's rule with prices
+measured on the H100 in place of its TPU v5e ones (``hub_knee_torch.py
+--constants``), else the rule's count. Without a split every edge goes
+through the sparse push, and the annealed loop writes no bf16 copy of its
+state. :func:`build_hub_split` takes a count.
 
 :func:`push_out_hybrid_t` (node-major) is the propagation loops' push;
 :func:`push_out_hybrid` is its batch-major form, the JAX package's, which
@@ -61,16 +65,18 @@ MAX_MATRIX_BYTES = 4 << 30
 
 
 def auto_num_hubs(g: Graph, dtype: torch.dtype = torch.float32, *,
-                  tail_ns_per_edge: float = TAIL_NS_PER_EDGE,
-                  hbm_gbps: float = HUB_COLUMN_GBPS,
-                  max_matrix_bytes: int = MAX_MATRIX_BYTES) -> int:
+                  tail_ns_per_edge: float | None = None,
+                  hbm_gbps: float | None = None,
+                  max_matrix_bytes: int | None = None) -> int:
     """The JAX package's marginal-benefit hub count
     (``ppr_tpu/ops/hub_split.py:47-69``): node v is a hub while the sparse
     cost of its in-edges, ``in_deg(v) * tail_ns_per_edge``, exceeds the
     cost of one more dense column, ``col_ns = n_pad * itemsize /
-    hbm_gbps``. The count is capped so that the matrix stays under
-    ``max_matrix_bytes`` and rounded down to a multiple of 128, at least
-    128.
+    hbm_gbps`` (:func:`over_threshold`). The count is capped so that the
+    matrix stays under ``max_matrix_bytes`` and rounded down to a multiple
+    of 128, at least 128. A price left None is the module's
+    (``TAIL_NS_PER_EDGE``, ``HUB_COLUMN_GBPS``, ``MAX_MATRIX_BYTES``), read
+    at call time.
 
     On the card the names mean: ``tail_ns_per_edge`` is K3's time an edge
     of the tail at B ``REF_BATCH``; ``hbm_gbps`` is not the memory's rate
@@ -80,13 +86,46 @@ def auto_num_hubs(g: Graph, dtype: torch.dtype = torch.float32, *,
     ``TAIL_NS_PER_EDGE`` and ``HUB_COLUMN_GBPS``). Both prices grow with
     B; the rule takes them at one batch and does not follow B. As in the
     JAX package it only needs them to within ~2x."""
+    if max_matrix_bytes is None:
+        max_matrix_bytes = MAX_MATRIX_BYTES
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    _, h = over_threshold(g, dtype, tail_ns_per_edge=tail_ns_per_edge,
+                          hbm_gbps=hbm_gbps)
+    h = min(h, max_matrix_bytes // max(g.n_pad * itemsize, 1), g.n)
+    return max(128, (h // 128) * 128) if h else 128
+
+
+def over_threshold(g: Graph, dtype: torch.dtype = torch.float32, *,
+                   tail_ns_per_edge: float | None = None,
+                   hbm_gbps: float | None = None) -> tuple[float, int]:
+    """The rule's threshold: ``(min_deg, h)``, the in-degree above which a
+    node's in-edges cost the sparse push more than one hub column in
+    ``dtype`` costs the product, and the count of nodes above it; a price
+    left None is the module's, read at call time."""
+    if tail_ns_per_edge is None:
+        tail_ns_per_edge = TAIL_NS_PER_EDGE
+    if hbm_gbps is None:
+        hbm_gbps = HUB_COLUMN_GBPS
     itemsize = torch.empty((), dtype=dtype).element_size()
     col_ns = g.n_pad * itemsize / hbm_gbps   # bytes / (GB/s) == ns
     min_deg = max(col_ns / tail_ns_per_edge, 1.0)
     in_deg = g.in_deg[: g.n].cpu().numpy()
-    h = int((in_deg > min_deg).sum())
-    h = min(h, max_matrix_bytes // max(g.n_pad * itemsize, 1), g.n)
-    return max(128, (h // 128) * 128) if h else 128
+    return min_deg, int((in_deg > min_deg).sum())
+
+
+def resolve_hub_split(g: Graph, num_hubs: int | str,
+                      dtype: torch.dtype = torch.float32) -> HubSplit | None:
+    """The split a serving caller holds, and the one place that takes
+    ``"auto"``: None where no node of an unweighted graph passes the
+    rule's threshold (every hub would cost more in the product than its
+    in-edges cost the sparse push), else :func:`build_hub_split` of
+    :func:`auto_num_hubs`, whose floor of 128 also covers 1-127 nodes over
+    the threshold. An explicit count always builds its split."""
+    if num_hubs == "auto":
+        if not g.weighted and over_threshold(g, dtype)[1] == 0:
+            return None
+        num_hubs = auto_num_hubs(g, dtype)
+    return build_hub_split(g, num_hubs, dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,10 +140,10 @@ class HubSplit:
     dtype: torch.dtype         # operand type of the hub product
 
 
-def build_hub_split(g: Graph, num_hubs: int | str = 512,
+def build_hub_split(g: Graph, num_hubs: int = 512,
                     dtype: torch.dtype = torch.float32) -> HubSplit:
-    """Construction from the destination-sorted edge view; ``num_hubs=
-    "auto"`` takes :func:`auto_num_hubs` with its card-measured prices.
+    """Construction of ``num_hubs`` hubs from the destination-sorted edge
+    view (``"auto"`` is :func:`resolve_hub_split`'s).
 
     The hub matrix is written on the graph's device from each (source,
     hub) pair's edge count, so no ``[n_pad, H]`` f32 matrix is made on the
@@ -115,8 +154,6 @@ def build_hub_split(g: Graph, num_hubs: int | str = 512,
         raise NotImplementedError("hub split supports uniform graphs")
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"hub dtype must be float32 or bfloat16, got {dtype}")
-    if num_hubs == "auto":
-        num_hubs = auto_num_hubs(g, dtype)
     num_hubs = int(min(num_hubs, g.n))
     in_deg = g.in_deg[: g.n].cpu().numpy()
     hub_ids = np.argsort(-in_deg, kind="stable")[:num_hubs].astype(np.int32)

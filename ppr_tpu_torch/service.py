@@ -8,7 +8,8 @@ propagation loop, or push+walk rounds where FORA's cost model prices walks
 lower; :meth:`PPRService.whole_graph` runs FORA whole-graph.
 ``hub_split=H`` builds the dense-hub hybrid push once, with a bf16 hub
 product unless ``hub_dtype`` says otherwise, and both algorithms use it
-(``hub_split="auto"``: the automatic count, ``ops/hub_split.py``);
+(``hub_split="auto"``: the automatic count, or no split where no node
+passes its threshold, ``ops/hub_split.py::resolve_hub_split``);
 ``calibrate=True`` measures the cost constants on the graph once and gives
 them to both. ``early_exit=True`` stops the annealed loop once every row's
 top-k set is certified final; ``cohort=True`` adds
@@ -44,7 +45,7 @@ import torch
 
 from .graph.io import Dataset
 from .models import AlgoConf, AlgoType
-from .ops.hub_split import build_hub_split
+from .ops.hub_split import resolve_hub_split
 from .ops.topk import topk_ids_with_ties
 from .utils import calibrate as calibrate_mod
 from .utils import timer
@@ -155,7 +156,7 @@ class PPRService:
                  if hasattr(a, "enable_hub_split")]
         if hub_split and algos:
             # built once and shared: the hub matrix can be gigabytes
-            hs = build_hub_split(
+            hs = resolve_hub_split(
                 dataset.graph, hub_split,
                 dtype=hub_dtype if hub_dtype is not None else torch.bfloat16,
             )

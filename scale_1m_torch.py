@@ -149,10 +149,10 @@ def topk_phase(args, ds, conf, sources, acc, oracle, out):
     dev = g.device
     fora = conf.set_conf_fora_topk(ds, K)
     fora.enable_hub_split("auto", dtype=torch.bfloat16)
-    hs = fora.hub_split
-    out["auto_hubs"] = hs.num_hubs
-    out["hub_edge_cover"] = 1.0 - hs.m_tail / max(g.m, 1)
-    out["tail_edges"] = hs.m_tail
+    hs = fora.hub_split                   # None: no node passes the rule
+    out["auto_hubs"] = hs.num_hubs if hs is not None else 0
+    out["tail_edges"] = hs.m_tail if hs is not None else g.m
+    out["hub_edge_cover"] = 1.0 - out["tail_edges"] / max(g.m, 1)
     reset_peak(dev)
     _, out["topk_warmup_s"] = timed(
         dev, lambda: fora.compute_topk_ids_batch(sources, K, EPS))
@@ -178,7 +178,7 @@ def topk_phase(args, ds, conf, sources, acc, oracle, out):
     out["recall_dense_rows"] = dense_rows
     print(f"[{PROG}] top-k B={args.batch}: {out['fora_topk_qps']:.2f} qps, "
           f"{out['topk_sweeps']} sweeps ({out['topk_path']}), "
-          f"{hs.num_hubs} auto hubs carrying "
+          f"{out['auto_hubs']} auto hubs carrying "
           f"{100 * out['hub_edge_cover']:.1f}% of the edges, recall@10 "
           f"{out['recall_at_10']:.4f}, peak {out['topk_peak_gb']} GB",
           flush=True)

@@ -5,7 +5,10 @@ automatic bf16 hub split held to the benchmark's plain reference
 (``benchmark/reference.py``) at an ``over`` limit that the reference in
 bfloat16 fails, and to the JAX package's FORA top-k on the same graph and
 batch; dangling sources answered with themselves alone; the annealed
-loop's state and dangling counters at their closed forms."""
+loop's state and dangling counters at their closed forms. Under prices
+that put the automatic rule's threshold at amazon0302's 748 in-links, no
+node of these graphs passes it, as none of amazon0302's does: ``"auto"``
+then makes no hub split, and every edge goes through the sparse push."""
 
 import sys
 from pathlib import Path
@@ -27,6 +30,7 @@ from ppr_tpu.models import fora as jfora  # noqa: E402
 from ppr_tpu_torch.graph.csr import build_graph  # noqa: E402
 from ppr_tpu_torch.graph.io import Dataset  # noqa: E402
 from ppr_tpu_torch.models import fora as tfora  # noqa: E402
+from ppr_tpu_torch.ops import hub_split as ths  # noqa: E402
 from ppr_tpu_torch.ops.topk import topk_ids_with_ties_from_pairs  # noqa: E402
 from ppr_tpu_torch.service import PPRService  # noqa: E402
 from ppr_tpu_torch.utils import timer  # noqa: E402
@@ -43,6 +47,9 @@ B = 64
 #: ``over`` between the program's readings on these graphs (at most
 #: 0.0073) and those of the reference computed in bfloat16 (at least 0.047)
 OVER = 0.02
+#: amazon0302's ``n_pad``, where the rule's threshold is 748 in-links at
+#: the card's prices
+AMAZON_N_PAD = 262144
 
 
 @pytest.fixture(autouse=True)
@@ -194,3 +201,77 @@ def test_no_bf16_copy_without_a_bf16_hub_product():
             sweeps * g.dang_ids.numel() * cols, 1)
         # the caller's three rows; the padding's node 0 is not counted
         assert sp.attrs["dangling_sources"] == 3
+
+
+@pytest.fixture
+def amazon_prices(deployment, monkeypatch):
+    """The rule's prices scaled so that its threshold on the deployment's
+    graph is the one at amazon0302's ``n_pad``: 748 in-links, over the
+    in-degree of every node here."""
+    g = deployment[4].dataset.graph
+    monkeypatch.setattr(ths, "TAIL_NS_PER_EDGE",
+                        ths.TAIL_NS_PER_EDGE * g.n_pad / AMAZON_N_PAD)
+    min_deg, over = ths.over_threshold(g, torch.bfloat16)
+    assert 748 < min_deg < 749 and over == 0
+    assert ths.auto_num_hubs(g, torch.bfloat16) == 128   # the rule's floor
+
+
+def test_no_split_where_no_node_passes_the_threshold(deployment,
+                                                     amazon_prices):
+    """``PPRService(hub_split="auto")`` and ``enable_hub_split()`` hold no
+    split on both algorithms; the call takes the annealed loop with every
+    edge in the sparse push (``hubs`` 0, ``tail_edges`` m) and no bf16
+    copy, meets the reference, and gives the JAX package's answers without
+    a split."""
+    name, src, dst, n, split_svc, batch = deployment
+    ds = split_svc.dataset
+    g = ds.graph
+    svc = PPRService(ds, alpha=ALPHA, eps=EPS, k=K, hub_split="auto",
+                     hub_dtype=torch.bfloat16)
+    assert svc._topk_algo.hub_split is None
+    assert svc._wg_algo.hub_split is None
+    talgo = tfora.ForaTopk(ds, ALPHA, K, seed=7, push="none")
+    for algo in (talgo, tfora.ForaWholeGraph(ds, ALPHA)):
+        algo.enable_hub_split(dtype=torch.bfloat16)
+        assert algo.hub_split is None
+    hits, sp, c = _recorded(svc, batch)
+    assert svc._topk_algo.last_path == "annealed"
+    assert sp.attrs["hubs"] == 0 and sp.attrs["tail_edges"] == g.m
+    sweeps = c["loop.sweeps"][0]
+    assert c["loop.bf16_copy_elems"] == (0, 1)
+    assert c["loop.edge_cols"] == (sweeps * g.m * B, 1)
+    answers = [(int(s), [(h.node, h.score) for h in row])
+               for s, row in zip(batch, hits)]
+    op = reference.Operator(src, dst, n, "cpu")
+    worst = reference.judge(answers, op, ALPHA, K, EPS)
+    assert worst["malformed"] == 0
+    assert worst["miss"] <= reference.LIMITS["miss"]
+    assert worst["over"] <= OVER
+    jds = JaxDataset(graph=jax_build_graph(src, dst, n, dense_threshold=0),
+                     names=ds.names, name=name)
+    jv, ji = jfora.ForaTopk(jds, ALPHA, K, seed=7, push="none"
+                            ).compute_topk_ids_batch(batch, K, EPS)
+    tv, ti = talgo.compute_topk_ids_batch(batch, K, EPS)
+    np.testing.assert_allclose(tv, np.asarray(jv), atol=1e-6)
+    out_deg = np.bincount(src, minlength=n)
+    for row, s in enumerate(batch):
+        got = topk_ids_with_ties_from_pairs(tv[row], ti[row], K)
+        assert set(got) == set(
+            topk_ids_with_ties_from_pairs(jv[row], ji[row], K))
+        if out_deg[s] == 0:
+            assert list(got) == [s] and tv[row][0] == 1.0
+
+
+def test_an_explicit_count_still_splits(deployment, amazon_prices):
+    """Under the same prices an explicit count builds the split it names,
+    through both callers and ``resolve_hub_split``."""
+    ds = deployment[4].dataset
+    svc = PPRService(ds, alpha=ALPHA, eps=EPS, k=K, hub_split=128,
+                     hub_dtype=torch.bfloat16)
+    assert svc._topk_algo.hub_split.num_hubs == 128
+    assert svc._wg_algo.hub_split is svc._topk_algo.hub_split
+    algo = tfora.ForaTopk(ds, ALPHA, K)
+    algo.enable_hub_split(128, dtype=torch.bfloat16)
+    assert algo.hub_split.num_hubs == 128
+    assert ths.resolve_hub_split(ds.graph, 128,
+                                 torch.bfloat16).num_hubs == 128

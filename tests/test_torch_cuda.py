@@ -1207,6 +1207,51 @@ def test_fora_auto_hubs_on_the_card_matches_cpu(cuda):
     assert out["cpu"] == out[str(cuda)]
 
 
+def test_fora_without_a_split_on_the_card_matches_cpu(cuda, monkeypatch):
+    """Where no node passes the automatic rule's threshold (prices that
+    put it half an in-link over the graph's largest in-degree),
+    ``ForaTopk.enable_hub_split(dtype=bf16)`` makes no split on the card as
+    on the CPU: the same count (0), sweeps and top-10 sets; on the card
+    the pre pass launches once a sweep launched, and writes no bf16
+    copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ppr_tpu_torch.ops import hub_split, sweep_pass
+    from ppr_tpu_torch.utils import timer
+
+    out = {}
+    for dev in ("cpu", cuda):
+        ds = synthetic_powerlaw(4096, 16, seed=7, dense_threshold=0,
+                                device=dev)
+        g = ds.graph
+        col_ns = g.n_pad * 2 / hub_split.HUB_COLUMN_GBPS
+        monkeypatch.setattr(hub_split, "TAIL_NS_PER_EDGE",
+                            col_ns / (float(g.in_deg.max()) + 0.5))
+        algo = ForaTopk(ds, ALPHA, 10, push="none")
+        algo.enable_hub_split(dtype=torch.bfloat16)
+        timer.RECORDER.clear()
+        before = sweep_pass.pre_launches
+        with profile(activities=[ProfilerActivity.CPU]):
+            vals, ids = algo.compute_topk_ids_batch(
+                np.arange(0, 4096, 97), 10, 0.5)
+        launched = sweep_pass.pre_launches - before
+        c = timer.RECORDER.counters()
+        (sp,) = [s for s in timer.RECORDER.spans() if s.name == "loop.topk"]
+        timer.RECORDER.clear()
+        sweeps = c["loop.sweeps"][0]
+        assert launched == (sweeps if g.device.type == "cuda" else 0)
+        assert c["loop.fused_sweeps"] == (launched, 1)
+        assert c["loop.bf16_copy_elems"] == (0, 1)
+        assert sp.attrs["hubs"] == 0 and sp.attrs["tail_edges"] == g.m
+        out[str(dev)] = (0 if algo.hub_split is None else
+                         algo.hub_split.num_hubs, algo.last_iters,
+                         [set(topk_ids_with_ties_from_pairs(
+                             vals[i], ids[i], 10, tol=1e-6).tolist())
+                          for i in range(len(vals))])
+    assert out["cpu"][0] == 0
+    assert out["cpu"] == out[str(cuda)]
+
+
 # -- a mesh across processes on the one card --------------------------------
 
 def spanning_rank(work: str, backend: str) -> None:

@@ -140,9 +140,9 @@ def test_hub_split_structure_matches_jax(graphs):
     for name in ("hub_ids", "hub_matrix", "tail_src", "tail_dst"):
         np.testing.assert_array_equal(getattr(ths, name).numpy(),
                                       np.asarray(getattr(jhs, name)), name)
-    # "auto" is ported (it raised NotImplementedError before): the count is
-    # the rule's with the module's prices, JAX's under the same prices
-    auto = thub.build_hub_split(tg, "auto")
+    # the automatic rule is ported: the count is the rule's with the
+    # module's prices, JAX's under the same prices
+    auto = thub.build_hub_split(tg, thub.auto_num_hubs(tg))
     assert auto.num_hubs == thub.auto_num_hubs(tg) == jhub.auto_num_hubs(
         jg, tail_ns_per_edge=thub.TAIL_NS_PER_EDGE,
         hbm_gbps=thub.HUB_COLUMN_GBPS)

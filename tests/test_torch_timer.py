@@ -191,14 +191,15 @@ def test_the_loop_span_and_counters(tiny, push, path, key):
     algo = tfora.ForaTopk(tiny, alpha=0.15, k=5, push=push)
     hs_algo = tfora.ForaTopk(tiny, alpha=0.15, k=5, push=push)
     hs_algo.enable_hub_split(8)
-    for a, tail in ((algo, tiny.graph.m), (hs_algo, None)):
+    for a, hubs, tail in ((algo, 0, tiny.graph.m), (hs_algo, 8, None)):
         timer.RECORDER.clear()
         tail = tail if tail is not None else a.hub_split.m_tail
         with _profiled():
             a.compute_topk_ids_batch(np.arange(10), 5, 0.5)
         (sp,) = [s for s in timer.RECORDER.spans() if s.name == "loop.topk"]
         assert sp.attrs == {"path": path, key: a.last_iters, "columns": 10,
-                            "dangling_sources": 0, "tail_edges": tail}
+                            "dangling_sources": 0, "hubs": hubs,
+                            "tail_edges": tail}
         assert a.last_path == path
         counters = timer.RECORDER.counters()
         if path != "annealed":
