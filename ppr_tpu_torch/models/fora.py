@@ -724,8 +724,6 @@ class ForaTopk(_ForaCostModel, PPRAlgorithm):
         self.last_round_walks: list[int] = []
         #: the path the last batch call took (:meth:`path_cost`)
         self.last_path: str | None = None
-        #: the dangling nodes on the host, for the ``loop.topk`` span
-        self._dang_ids = dataset.graph.dang_ids.cpu().numpy()
         self._init_cost_constants()
 
     def path_cost(self, eps: float, batch: int) -> tuple[float, float, str]:
@@ -764,7 +762,7 @@ class ForaTopk(_ForaCostModel, PPRAlgorithm):
                 g, sources_t, result, torch.zeros_like(result), src_onehot
             )
             out = result.cpu().numpy()[:b]
-            self._note_loop(sp, sources, b)
+            self._note_loop(sp, len(sources))
         return out
 
     def compute_topk_ids_batch(self, sources: np.ndarray, k: int, param, *,
@@ -785,23 +783,20 @@ class ForaTopk(_ForaCostModel, PPRAlgorithm):
             vals, ids = _device_topk_epilogue(g, sources_t, result,
                                               src_onehot, kcap)
             out = vals.cpu().numpy()[:b], ids.cpu().numpy()[:b]
-            self._note_loop(sp, sources, b)
+            self._note_loop(sp, len(sources))
         return out
 
-    def _note_loop(self, sp, sources: np.ndarray, b: int) -> None:
+    def _note_loop(self, sp, columns: int) -> None:
         """The ``loop.topk`` span's attributes: the ``path`` the last call
         took, its ``sweeps`` (the annealed loop's count) or ``rounds``
-        (push+walks), its ``columns`` (the padded batch), its
-        ``dangling_sources`` (the first ``b`` sources, the caller's rows,
-        with out-degree 0), ``hubs``, the hub count (0 without a hub
-        split), and ``tail_edges``, the edges the sparse tail's kernel
-        sweeps (the graph's without a hub split)."""
+        (push+walks), its ``columns`` (the padded batch), ``hubs``, the
+        hub count (0 without a hub split), and ``tail_edges``, the edges
+        the sparse tail's kernel sweeps (the graph's without a hub
+        split)."""
         if sp is timer.NO_SPAN:
             return
         hs = self.hub_split
-        dangling = int(np.isin(sources[:b], self._dang_ids).sum())
-        sp.set(path=self.last_path, columns=len(sources),
-               dangling_sources=dangling,
+        sp.set(path=self.last_path, columns=columns,
                hubs=hs.num_hubs if hs is not None else 0,
                tail_edges=hs.m_tail if hs is not None else self.graph.m,
                **{"sweeps" if self.last_path == "annealed" else "rounds":

@@ -13,7 +13,6 @@ import itertools
 
 import numpy as np
 import pytest
-import torch
 
 from ppr_tpu.graph.io import synthetic_powerlaw
 from ppr_tpu.parallel import comm_model as jcm
@@ -27,16 +26,6 @@ from ppr_tpu_torch.parallel.scaling import (engine_scaling_sweep,
 #: rates for the comparisons: any pair, given to both packages
 RATES = dict(spmv_ns_per_edge=3.5, link_bytes_per_s=2.0e11)
 JAX_RATES = dict(spmv_ns_per_edge=3.5, ici_bytes_per_s=2.0e11)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the mesh loops are many small ops a shard, which
-    threads only slow down beside other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

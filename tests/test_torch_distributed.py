@@ -295,14 +295,6 @@ def rank_main(spawn: str, work: str) -> None:
     dist.destroy_process_group()
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """``runs(spawn) -> (single-process result, [every rank's result])``,

@@ -41,16 +41,6 @@ from ppr_tpu_torch.utils.metrics import max_abs_err, ndcg_at_k, precision_at_k
 ALPHA, EPS, K = 0.15, 0.5, 10
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the walks are many small ops, which threads only
-    slow down beside other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def port_dataset(jds):
     jg = jds.graph
     tg = graph_from_numpy(

@@ -41,16 +41,6 @@ ALPHA = 0.15
 SHAPES = [(4, 2), (2, 4), (1, 1)]
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the walks and the mesh loops are many small ops,
-    which threads only slow down beside other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def port_dataset(jds):
     jg = jds.graph
     tg = graph_from_numpy(

@@ -27,16 +27,6 @@ from ppr_tpu_torch.utils.metrics import max_abs_err, ndcg_at_k, precision_at_k
 ALPHA, K = 0.15, 10
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the walks are many small ops, which threads only
-    slow down beside other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def got():
     return load_default(device="cpu")

@@ -17,7 +17,6 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 from ppr_tpu.graph.csr import build_graph as jax_build_graph
 from ppr_tpu.graph.io import Dataset as JaxDataset
@@ -56,16 +55,6 @@ def jax_mesh(d, g):
 
 def port_mesh(d, g):
     return make_mesh(d * g, data=d, graph=g, devices=["cpu"] * (d * g))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the walks and the ring are many small ops, which
-    threads only slow down beside other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -42,16 +42,6 @@ def jax_script():
     return mod
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the ring is many small ops a shard, which threads
-    only slow down beside other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def graphs():
     jds, tds = jax_load(SPEC), load_dataset(SPEC, device="cpu")

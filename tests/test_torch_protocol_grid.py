@@ -34,16 +34,6 @@ JAX_COMMANDS = {
 }
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread: many small ops, which threads only slow down
-    beside other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @contextlib.contextmanager
 def chdir(path):
     cwd = os.getcwd()

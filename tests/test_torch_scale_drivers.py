@@ -27,16 +27,6 @@ PRE_PORT = ("hub_knee_r4.json", "hub_knee_b2048.json", "scale_1m_nodes.json",
             "scale_1m_knee.json", "ring_occupancy.json", "scaling_model.json")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the loops are many small ops, which threads only
-    slow down beside other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def results_before():
     return {p.name: (p.stat().st_mtime_ns, p.stat().st_size)

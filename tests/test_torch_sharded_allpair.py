@@ -21,7 +21,6 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from ppr_tpu.graph.io import Dataset as JaxDataset
 from ppr_tpu.graph.io import synthetic_powerlaw, synthetic_weighted
@@ -43,16 +42,6 @@ SHAPES = [(4, 2), (2, 4), (1, 1)]
 ENGINES = {"edge": (jsa.ShardedBackwardSearch, tsa.ShardedBackwardSearch),
            "node": (jnsa.NodeShardedBackwardSearch,
                     tnsa.NodeShardedBackwardSearch)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the mesh loops are many small ops a shard, which
-    threads only slow down beside other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def port_dataset(jds):

@@ -198,8 +198,7 @@ def test_the_loop_span_and_counters(tiny, push, path, key):
             a.compute_topk_ids_batch(np.arange(10), 5, 0.5)
         (sp,) = [s for s in timer.RECORDER.spans() if s.name == "loop.topk"]
         assert sp.attrs == {"path": path, key: a.last_iters, "columns": 10,
-                            "dangling_sources": 0, "hubs": hubs,
-                            "tail_edges": tail}
+                            "hubs": hubs, "tail_edges": tail}
         assert a.last_path == path
         counters = timer.RECORDER.counters()
         if path != "annealed":

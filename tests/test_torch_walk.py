@@ -29,16 +29,6 @@ ALPHA = 0.15
 TINY = (np.array([0, 0, 1, 2, 3, 5]), np.array([1, 2, 2, 0, 0, 5]), 6)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the walks are many small ops, which threads only
-    slow down beside other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def gen(seed):
     g = torch.Generator(device="cpu")
     g.manual_seed(seed)

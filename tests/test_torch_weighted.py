@@ -54,16 +54,6 @@ FIELDS = ("indptr", "indices", "edge_src", "edge_dst", "edge_mask",
           "alias_prob", "alias_other")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the walks are many small ops, which threads only
-    slow down beside other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def gen(seed):
     return torch.Generator(device="cpu").manual_seed(seed)
 
