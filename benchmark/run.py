@@ -9,7 +9,8 @@ service on it, warms every shape the traffic uses, measures for
 plain reference (``reference.py``), and prints one JSON line last on
 standard output. ``--trace 1`` profiles a slice (batches 1-3 of a closed
 loop's window; 3 s of an open loop's arrivals after its window, from an
-idle server) and reports the per-layer metrics instead of the end-to-end
+idle server; where the profiler lost records of it, the next such slice,
+up to three) and reports the per-layer metrics instead of the end-to-end
 ones. Without a CUDA card
 (or with fewer than the cell asks for) it exits 2 and prints no result; it
 never falls back to the CPU.
@@ -41,7 +42,7 @@ if str(ROOT) not in sys.path:
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from benchmark import graphgen, reference, traffic  # noqa: E402
+from benchmark import graphgen, reference, spans, traffic  # noqa: E402
 from benchmark.manifest import Manifest, load_metric  # noqa: E402
 from benchmark.tracing import WINDOW, Trace  # noqa: E402
 
@@ -52,6 +53,13 @@ SAMPLE = 128
 #: the traced slice: batches of a closed loop, seconds of an open one
 TRACE_BATCHES = 3
 TRACE_SECONDS = 3.0
+#: slices tried before one that lost records is kept
+TRACE_TRIES = 3
+#: seconds the profiler runs on the card, the card idle, before the
+#: slice's window and after it: the profiler drops a kernel whose stamps
+#: fall outside its session, and the card's clock has sat off the host's
+#: by up to ~1.25 s (late)
+TRACE_PAD_S = 2.0
 
 
 def parse_args(argv=None):
@@ -83,17 +91,25 @@ def rngs(seed: int):
 
 class Tracer:
     """``torch.profiler`` over a slice of the window, the slice marked by
-    the :data:`~benchmark.tracing.WINDOW` annotation."""
+    the :data:`~benchmark.tracing.WINDOW` annotation. A slice whose trace
+    lost records is traced anew, :data:`TRACE_TRIES` slices at most: the
+    tracer is ``done`` once it keeps one."""
 
     def __init__(self, device: torch.device, batches: int = TRACE_BATCHES,
                  seconds: float = TRACE_SECONDS):
         self.device = device
         self.batches, self.seconds = batches, seconds
         self.on = self.done = False
+        self.slices = 0
+        self.trace: Trace | None = None
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _pad(self):
+        if self.device.type == "cuda":
+            time.sleep(TRACE_PAD_S)
 
     def _profile(self):
         from torch.profiler import ProfilerActivity, profile
@@ -111,25 +127,45 @@ class Tracer:
             self._sync()
 
     def start(self):
+        """Open a slice: the program's recorder emptied, so that its spans
+        and counters are the slice's, the profiler started, the card idle
+        and, on the card, :data:`TRACE_PAD_S` waited."""
         from torch.profiler import record_function
 
+        rec = spans.recorder()
+        if rec is not None:
+            rec.clear()
+        self.slices += 1
         self._prof = self._profile()
         self._prof.start()
         self._sync()
+        self._pad()
         self._mark = record_function(WINDOW)
         self._mark.__enter__()
-        self.t_on = time.perf_counter()
         self.on = True
 
     def stop(self):
+        """Close the slice with the card idle, on the card wait
+        :data:`TRACE_PAD_S`, stop the profiler and read its trace; keep it
+        where it holds a kernel for every launch call of the slice, or
+        where it is the last slice to try."""
         self._sync()
         self._mark.__exit__(None, None, None)
+        self._pad()
         self._prof.stop()
-        self.on, self.done = False, True
+        self.on = False
+        self.trace = self._read()
+        lost = self.trace.launches_without_kernel
+        if lost:
+            log(f"trace: slice {self.slices} lost records: {lost} launch "
+                f"call(s) without a kernel")
+        self.done = not lost or self.slices >= TRACE_TRIES
 
     def read(self) -> Trace | None:
-        if not self.done:
-            return None
+        """The kept slice's trace."""
+        return self.trace if self.done else None
+
+    def _read(self) -> Trace:
         tmp = tempfile.mkdtemp(prefix="ppr-bench-trace-")
         try:
             path = os.path.join(tmp, "trace.json")
@@ -226,6 +262,7 @@ class Measured:
     setup_s: float
     peak: int
     trace: Trace | None
+    trace_slices: int
     check_rng: np.random.Generator
 
 
@@ -299,7 +336,7 @@ def measure(man: Manifest, workload: str, seed: int, seconds: float,
     if rec.counters:
         log("server counters over the window: " + json.dumps(rec.counters))
     return Measured(cfg, src, dst, rec, setup_s, int(peak), trace_obj,
-                    check_rng)
+                    tracer.slices if tracer is not None else 0, check_rng)
 
 
 def run_cell(man: Manifest, workload: str, seed: int, seconds: float,
@@ -309,7 +346,23 @@ def run_cell(man: Manifest, workload: str, seed: int, seconds: float,
     m = measure(man, workload, seed, seconds, trace, device, t_start)
     rec, trace_obj, eng = m.rec, m.trace, m.cfg["engine"]
     metrics = {}
-    ctx = types.SimpleNamespace(trace=trace_obj, record=rec)
+    if trace_obj is not None:
+        log(f"trace: busy {trace_obj.busy_s} s of a window of "
+            f"{trace_obj.window_s} s; card clock offset "
+            f"{trace_obj.clock_offset_us} us; "
+            f"{trace_obj.launches_without_kernel} launch call(s) without a "
+            f"kernel, {trace_obj.kernels_without_launch} kernel(s) without "
+            f"a launch call; {m.trace_slices} slice(s)")
+        if trace_obj.clock_offset_us is None:
+            log("trace: no kernel is tied to its launch call: kernels left "
+                "on the card's clock")
+        if not trace_obj.complete:
+            log(f"trace: every one of {m.trace_slices} slices lost records: "
+                "no reading from the trace")
+    # an incomplete trace's kernel time is short: nothing reads it
+    ctx = types.SimpleNamespace(
+        trace=trace_obj if trace_obj is not None and trace_obj.complete
+        else None, record=rec)
     for spec in (man.per_layer(workload) if trace
                  else man.end_to_end(workload)):
         value = (load_metric(spec["name"]).read(ctx) if trace
@@ -336,6 +389,10 @@ def run_cell(man: Manifest, workload: str, seed: int, seconds: float,
     if trace_obj is not None:
         dev["busy_s"] = trace_obj.busy_s
         dev["window_s"] = trace_obj.window_s
+        dev["clock_offset_us"] = trace_obj.clock_offset_us
+        dev["launches_without_kernel"] = trace_obj.launches_without_kernel
+        dev["kernels_without_launch"] = trace_obj.kernels_without_launch
+        dev["trace_slices"] = m.trace_slices
         out["breakdown"] = {"device_ops": trace_obj.device_ops(),
                             "idle_gaps": trace_obj.idle_gaps()}
     out["checks"] = checked

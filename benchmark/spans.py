@@ -4,18 +4,22 @@ host was in.
 
 The program records spans and counters only while ``torch.profiler``
 runs, so what its recorder holds after a traced run is the traced slice's
-(the harness profiles nothing else). Spans carry ``time.time_ns()``
-stamps; the chrome trace puts a host event at ``ts`` microseconds after
-its ``baseTimeNanoseconds``, which :class:`~benchmark.tracing.Trace` does
-not keep. That base is a whole number of seconds (read on an H100 under
-torch 2.11 and on the CPU under torch 2.13), so :func:`base_ns` rounds it
-from the slice's first span and the window's start, which lie well under
-a second apart; a span then sits on the window's clock as the profiler's
-own annotations do (15-20 us after the operator it closes, on the H100).
+(the harness profiles nothing else, and empties the recorder before each
+slice it starts). Spans carry ``time.time_ns()`` stamps; the chrome trace
+puts a host event at ``ts`` microseconds after its
+``baseTimeNanoseconds``, which :func:`base_ns` takes from the trace where
+it records one (:meth:`benchmark.tracing.Trace.load`). That base is a whole
+number of seconds (read on an H100 under torch 2.11 and on the CPU under
+torch 2.13), so without it :func:`base_ns` rounds it from the slice's first
+span and the window's start, which lie well under a second apart; a span
+then sits on the window's clock as the profiler's own annotations do
+(15-20 us after the operator it closes, on the H100).
 
-The card's events are another matter: in some traced runs on the H100
-their clock drifts from the host's, by up to 5.3 ms (early) and 17.8 ms
-(late) over a slice of 3-4 s, so no offset lays a span on the kernels to
+The card's events are another matter: in traced runs on the H100 their
+clock has sat off the host's by 5.3 ms (early), 17.8 ms (late) and ~1.25 s
+(late) over a slice of 3-4 s. :class:`~benchmark.tracing.Trace` moves the
+kernels back by that offset, read from each kernel's launch call, but a
+drift within the slice stays, so no offset lays a span on the kernels to
 0.1 ms. The split needs none. Every ``loop.topk`` span ends in a blocking
 copy of its result, and outside those spans the program launches nothing
 (the hit lists, the futures and batch forming are host work), so while
@@ -24,10 +28,11 @@ that time is the span's idle time, on the host's clock alone. The trace
 gives the slice's whole idle time; the rest of it is reported as
 uncovered, and split in turn: the host's time in no span at all (idle
 too, on the host's clock) and what is left, the idle time inside
-``loop.topk``. :func:`lags` says how far the
-card's clock sat from the host's in a run: each host return from a
-blocking read (the ends of ``loop.check`` and ``loop.topk``) follows the
-end of a busy interval by the copy's latency.
+``loop.topk``. :func:`lags` says how far the placed kernels sit from the
+host's spans in a run: each host return from a blocking read (the ends of
+``loop.check`` and ``loop.topk``) follows the end of a busy interval by
+the copy's latency alone where the kernels are placed by their launches,
+and by that and the card clock's drift within the slice where not.
 
 A program without the recorder (an older commit) reads as no spans: every
 reader here returns None and none raises.
@@ -117,11 +122,14 @@ def _length(ivs) -> float:
 
 
 def base_ns(trace, recorded: list) -> int | None:
-    """The trace's ``baseTimeNanoseconds``: the first span starts inside
-    the window, so the distance from the window's start rounds down to
-    it, a quarter of a second allowed on either side."""
+    """The trace's ``baseTimeNanoseconds``, as the trace records it, or
+    else from the spans: the first span starts inside the window, so the
+    distance from the window's start rounds down to it, a quarter of a
+    second allowed on either side."""
     if not recorded or trace.t1 <= trace.t0:
         return None
+    if trace.base_ns is not None:
+        return int(trace.base_ns)
     first = min(s.start_ns for s in recorded)
     return ((first - int(trace.t0 * 1e3) + 250_000_000) // 10**9) * 10**9
 

@@ -55,8 +55,9 @@ def test_graphs_are_simple_seeded_and_exact(undirected):
 
 
 def _trace():
-    """Two kernels linked to operators, one unlinked, inside a window of
-    100 us, and one kernel outside it; an ``aten::mm`` with its shapes."""
+    """Two kernels linked to operators inside a window of 100 us, one
+    unlinked that runs past its end and one after it; an ``aten::mm`` with
+    its shapes. No launch call is recorded, so no kernel is moved."""
     return Trace([
         {"ph": "X", "cat": "user_annotation", "name": WINDOW, "ts": 1000.0,
          "dur": 100.0},
@@ -84,18 +85,22 @@ def _trace():
 def test_trace_busy_idle_and_links():
     tr = _trace()
     assert tr.window_s == pytest.approx(100e-6)
-    # [1010, 1040] and [1095, 1100] (clipped): 35 us busy
-    assert tr.busy_s == pytest.approx(35e-6)
-    assert tr.idle_share == pytest.approx(0.65)
+    assert tr.clock_offset_us is None and tr.kernels_without_launch == 4
+    assert tr.launches_without_kernel == 0 and tr.complete
+    # every kernel of the trace whole: [1010, 1040], [1095, 1105] and
+    # [1200, 1210], 50 us busy
+    assert tr.busy_s == pytest.approx(50e-6)
+    assert tr.idle_share == pytest.approx(0.5)
     assert tr.kernel_s(lambda k, op: "ppr_gather" in k["name"]) == \
-        pytest.approx(5e-6)
+        pytest.approx(10e-6)
     ops = dict(tr.device_ops())
     assert ops["aten::mm: nvjet_gemm"] == pytest.approx(20e-6)
     assert ops["aten::mul: elementwise"] == pytest.approx(15e-6)
-    assert ops["ppr_gather_kernel"] == pytest.approx(5e-6)
+    assert ops["ppr_gather_kernel"] == pytest.approx(10e-6)
+    assert ops["late"] == pytest.approx(10e-6)
     gaps = dict(tr.idle_gaps())
     # [1000, 1010): aten::mm on the host; [1040, 1095): aten::item 30 us of
-    # 55 -> its label
+    # 55 -> its label; nothing idle after the window's end
     assert gaps["aten::mm"] == pytest.approx(10e-6)
     assert gaps["aten::item"] == pytest.approx(55e-6)
     assert NO_OP not in gaps
@@ -105,14 +110,14 @@ def test_the_readers_on_the_synthetic_trace():
     rec = traffic.Record(queries_traced=2)
     ctx = types.SimpleNamespace(trace=_trace(), record=rec)
     k3 = load_metric("kernel.k3_us_per_query.batch").read(ctx)
-    assert k3 == pytest.approx(2.5)
+    assert k3 == pytest.approx(5.0)
     loop = load_metric("loop.state_pass_us_per_query.batch").read(ctx)
     assert loop == pytest.approx(7.5)
     roof = load_metric("kernel.hub_mm_roofline.batch").read(ctx)
     flop = 2.0 * 2944 * 80640 * 2048
     assert roof == pytest.approx(100 * flop / 989e12 / 20e-6)
     idle = load_metric("device.idle_share.batch").read(ctx)
-    assert idle == pytest.approx(65.0)
+    assert idle == pytest.approx(50.0)
     empty = types.SimpleNamespace(trace=None, record=rec)
     assert load_metric("device.idle_share.serve").read(empty) is None
     assert load_metric("kernel.hub_mm_roofline.batch").read(empty) is None

@@ -68,25 +68,28 @@ def _pairs(hits) -> list:
 def run_batch(svc, mix: dict, n: int, rng, seconds: float, tracer) -> Record:
     """The closed loop: batches until ``seconds`` have passed; the window
     ends when the batch running then returns. ``tracer`` brackets batches
-    1 to ``tracer.batches`` of the window, which runs on until they are
-    done."""
+    1 to ``tracer.batches`` of the window, and the next ``tracer.batches``
+    after each slice it does not keep; the window runs on until it keeps
+    one."""
     b = int(mix["batch"])
     rec = Record()
     t0 = time.perf_counter()
     rec.first_t = t0
-    i = 0
+    i = first = 0
     while (i == 0 or time.perf_counter() - t0 < seconds
            or (tracer is not None and not tracer.done)):
         batch = sources(rng, n, b)
-        if tracer is not None and i == 1:
+        if tracer is not None and i >= 1 and not (tracer.on or tracer.done):
             tracer.start()
+            first = i
         try:
             hits = svc.top_k(batch)
         except Exception as e:  # noqa: BLE001 - a failed batch is counted
             rec.failed += b
             rec.notes.setdefault("errors", []).append(repr(e))
             hits = None
-        if tracer is not None and i == tracer.batches and tracer.on:
+        if tracer is not None and tracer.on \
+                and i == first + tracer.batches - 1:
             tracer.stop()
             rec.queries_traced = tracer.batches * b
         rec.attempted += b
@@ -200,15 +203,17 @@ def trace_open(server, mix: dict, n: int, rng, tracer,
     the server idle (``torch.profiler`` is not safe to start or stop while
     another thread runs operators), the profiler starts, the mix's arrivals
     run for ``tracer.seconds``, every one of them resolves, and the
-    profiler stops. The slice starts from an idle server; the window's
-    record is not touched. Returns the requests sent."""
-    due = due_times(rng, float(mix["rate_qps"]), tracer.seconds)
-    tracer.start()
-    offer = _Offer(due, sources(rng, n, due.size))
-    for i in range(due.size):
-        offer.send(server, i)
-    end = time.perf_counter() + timeout_s
-    while np.isnan(offer.done).any() and time.perf_counter() < end:
-        time.sleep(0.001)
-    tracer.stop()
+    profiler stops; again, on fresh arrivals, until the tracer keeps a
+    slice. Each slice starts from an idle server; the window's record is
+    not touched. Returns the requests the kept slice sent."""
+    while not tracer.done:
+        due = due_times(rng, float(mix["rate_qps"]), tracer.seconds)
+        tracer.start()
+        offer = _Offer(due, sources(rng, n, due.size))
+        for i in range(due.size):
+            offer.send(server, i)
+        end = time.perf_counter() + timeout_s
+        while np.isnan(offer.done).any() and time.perf_counter() < end:
+            time.sleep(0.001)
+        tracer.stop()
     return int(due.size)
