@@ -193,26 +193,38 @@ class PPRService:
 
     def _hits_from_ids(self, vals, ids, k: int, sources: np.ndarray,
                        eps: float) -> list[list[TopKHit]]:
-        """Device-selected (vals, ids) windows -> per-row hit lists with
-        reference tie semantics; rows whose tie set may overflow the
-        selection window are recomputed densely."""
-        out = []
-        dense_rows = []
+        """Device-selected (vals, ids) windows ``[B, K]``, each row
+        descending -> per-row hit lists with reference tie semantics; rows
+        whose tie set may overflow the selection window are recomputed
+        densely.
+
+        One pass over the whole window: a row keeps its positive entries
+        and, where ``K > k``, those at or above its k-th (the positives are
+        a prefix of a descending row, so ``vals[:, k - 1]`` is the k-th
+        positive wherever more than k are positive); a row that keeps its
+        whole window may have ties beyond it. Only the kept entries leave
+        numpy. While profiled, the counters ``service.hits_built`` (hits
+        built from the window) and ``service.tie_rows`` (rows whose list
+        runs past k on ties) add up what the call did."""
+        b_rows, width = vals.shape
+        names = self.dataset.names
         with timer.span("service.hits"):
-            for b, (vrow, irow) in enumerate(zip(vals, ids)):
-                sup = vrow > 0.0
-                v, i = vrow[sup], irow[sup]
-                if v.size > k:
-                    keep = v >= v[k - 1]
-                    v, i = v[keep], i[keep]
-                if v.size == vrow.size and vrow.size and vrow[-1] > 0.0:
-                    dense_rows.append(b)
-                    out.append(None)
-                else:
-                    out.append([
-                        TopKHit(int(n), float(s), self.dataset.names[int(n)])
-                        for s, n in zip(v, i)
-                    ])
+            keep = vals > 0.0
+            if width > k:
+                keep &= vals >= vals[:, k - 1:k]
+            dense = keep.all(1) if width else np.zeros(b_rows, bool)
+            dense_rows = np.flatnonzero(dense).tolist()
+            if dense_rows:
+                keep[dense_rows] = False
+            node = ids[keep].tolist()
+            hits = list(map(TopKHit, node, vals[keep].tolist(),
+                            [names[n] for n in node]))
+            cnt = keep.sum(1)
+            ends = np.cumsum(cnt).tolist()
+            out = [hits[a:b] for a, b in zip([0] + ends[:-1], ends)]
+        if timer.recording():
+            timer.count("service.hits_built", len(hits))
+            timer.count("service.tie_rows", int((cnt > k).sum()))
         if dense_rows:
             with timer.span("service.recompute", rows=len(dense_rows)):
                 scores = self._topk_algo.compute_topk_batch(

@@ -93,6 +93,93 @@ def test_dense_fallback_on_tie_overflow(datasets):
                                          svc._hits_dense(dense, 3)]
 
 
+class RecomputeStub:
+    """The dense recompute of a service, stubbed: each source's row is a
+    draw seeded by it, rounded so that it ties; the sources asked for are
+    kept."""
+
+    def __init__(self, n, n_pad):
+        self.n, self.n_pad, self.asked = n, n_pad, []
+
+    def compute_topk_batch(self, sources, k, eps):
+        self.asked.append([int(s) for s in sources])
+        rows = np.zeros((len(sources), self.n_pad), np.float32)
+        for r, s in zip(rows, sources):
+            r[:self.n] = np.round(np.random.default_rng(int(s)).random(
+                self.n), 1)
+        return rows
+
+
+def tie_window(case, n, rng):
+    """``(vals [B, K], ids [B, K], k)`` as the device selects them: each
+    row descending, positive entries first, distinct node ids."""
+    k, width, rows = 10, 42, 24
+    if case == "narrow_window":
+        width = 7
+    elif case.startswith("window_of_k"):
+        width = k + case.endswith("plus_one")
+    elif case == "zero_rows":
+        rows = 0
+    elif case == "zero_width":
+        rows, width = 0, 0
+    vals = -np.sort(-(rng.random((rows, width)) + 0.01), axis=1)
+    support = rng.integers(0, width + 1, rows)
+    if case == "short_support":
+        support = rng.choice([0, 1, k - 1, k, k + 1], rows)
+    if case in ("ties_past_k", "full_window_ties"):
+        for b in range(rows):
+            # the k-th value repeated over the next few, or to the end
+            last = (width if case == "full_window_ties" and b % 2
+                    else k + int(rng.integers(0, 6)))
+            vals[b, k - 1:last] = vals[b, k - 1]
+            if case == "full_window_ties":
+                support[b] = width if b % 3 else support[b]
+    if case in ("no_ties", "narrow_window", "window_of_k",
+                "window_of_k_plus_one"):
+        support[::4] = width      # full windows, last entry positive
+    vals[np.arange(width)[None, :] >= support[:, None]] = 0.0
+    ids = np.stack([rng.choice(n, width, replace=False) for _ in range(rows)]
+                   ) if rows else np.zeros((0, width), int)
+    return vals.astype(np.float32), ids, k
+
+
+@pytest.mark.parametrize("id_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("case", [
+    "no_ties", "ties_past_k", "short_support", "full_window_ties",
+    "narrow_window", "window_of_k", "window_of_k_plus_one", "zero_rows",
+    "zero_width"])
+def test_hits_from_ids_match_jax(datasets, case, id_dtype):
+    """One pass over the window gives the JAX service's row-by-row hit
+    lists, element for element (node, score, name, order, ties past k),
+    with Python scalars, and recomputes the same rows."""
+    jds, tds = datasets["small"]
+    vals, ids, k = tie_window(case, tds.n, np.random.default_rng(25))
+    ids = ids.astype(id_dtype)
+    sources = np.arange(len(vals)) * 7 % tds.n
+    got, want = [], []
+    for out, svc in ((got, PPRService(tds, k=k)),
+                     (want, JaxService(jds, k=k))):
+        svc._topk_algo = RecomputeStub(tds.n, tds.graph.n_pad)
+        out.append([[(h.node, h.score, h.name) for h in row]
+                    for row in svc._hits_from_ids(vals, ids, k, sources,
+                                                  0.5)])
+        out.append(svc._topk_algo.asked)
+    assert got == want
+    hits, asked = got
+    assert len(hits) == len(vals)
+    assert all(type(node) is int and type(score) is float
+               for row in hits for node, score, _ in row)
+    longest = max((len(row) for row in hits), default=0)
+    if case in ("ties_past_k", "full_window_ties"):
+        assert longest > k
+    if case in ("full_window_ties", "narrow_window", "window_of_k"):
+        assert asked and len(asked[0]) >= 2
+    elif case == "no_ties":
+        assert not asked and longest == k
+    if case == "short_support":
+        assert {len(row) for row in hits} >= {0, 1, k - 1, k}
+
+
 @pytest.mark.parametrize("option", [
     dict(mesh="2x2"), dict(calibrate=True),
 ])

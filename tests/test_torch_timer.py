@@ -4,6 +4,7 @@ record too, nests spans and shares a dispatch's id, never waits for the
 card, and lands in the chrome trace that ``timer.trace`` writes; and the
 spans the serving, service and loop layers record on a tiny graph."""
 
+import contextlib
 import json
 import threading
 import time
@@ -214,6 +215,41 @@ def test_the_loop_span_and_counters(tiny, push, path, key):
         assert len(checks) == sweeps // tfora.CHECK_EVERY
         assert all(c.parent == sp.id for c in checks)
         assert counters["loop.edge_cols"] == (sweeps * tail * 10, 1)
+
+
+@pytest.mark.parametrize("profiled", [True, False])
+def test_the_hit_list_counters(tiny, profiled):
+    """Under a profiler ``service.hits_built`` counts the hits built from
+    the window and ``service.tie_rows`` the rows that run past k on ties
+    (a recomputed row in neither); outside one nothing is recorded."""
+    svc = PPRService(tiny, alpha=0.15, k=3)
+    vals = np.array([[.5, .4, .3, .2, .1, 0.],     # 3 hits
+                     [.5, .3, .3, .3, 0., 0.],     # 4: ties past k
+                     [.4, .2, .2, .2, .2, .2],     # recomputed
+                     [.0, .0, .0, .0, .0, .0]], np.float32)
+    ids = np.arange(24).reshape(4, 6)
+    with _profiled() if profiled else contextlib.nullcontext():
+        hits = svc._hits_from_ids(vals, ids, 3, np.array([1, 2, 3, 4]), 0.5)
+    assert [len(row) for row in hits[:2] + hits[3:]] == [3, 4, 0]
+    counters = timer.RECORDER.counters()
+    if not profiled:
+        assert counters == {} and timer.RECORDER.spans() == []
+        return
+    assert counters["service.hits_built"] == (7, 1)
+    assert counters["service.tie_rows"] == (1, 1)
+    (rec,) = [s for s in timer.RECORDER.spans()
+              if s.name == "service.recompute"]
+    assert rec.attrs == {"rows": 1}
+    # a whole call: every hit of the window counted, none recomputed
+    timer.RECORDER.clear()
+    with _profiled():
+        rows = svc.top_k(np.arange(0, 400, 9))
+    assert not [s for s in timer.RECORDER.spans()
+                if s.name == "service.recompute"]
+    counters = timer.RECORDER.counters()
+    assert counters["service.hits_built"] == (sum(map(len, rows)), 1)
+    assert counters["service.tie_rows"] == (
+        sum(len(row) > 3 for row in rows), 1)
 
 
 def test_trace_writes_the_unrecorded_threads_spans(tmp_path):
